@@ -1,4 +1,4 @@
-"""flash_attn_tpu: TPU-native flash-attention framework (JAX/Pallas).
+"""flash_attn_tpu: a flash-attention framework in JAX.
 
 Public API surface mirrors the reference flash-attention package
 (flash_attn/__init__.py:8-16) — see README.md and SURVEY.md.
@@ -19,7 +19,7 @@ from flash_attn_tpu.cache.kvcache import (
     flash_attn_with_kvcache,
     kv_cache_update,
 )
-from flash_attn_tpu.kernels.flash_decode import combine_splits as flash_attn_combine
+from flash_attn_tpu.backend import combine_splits as flash_attn_combine
 from flash_attn_tpu.dispatch.scheduler_metadata import get_scheduler_metadata
 
 __all__ = [

@@ -7,9 +7,10 @@ mutating the cache in place this returns the updated cache arrays; under
 ``jax.jit`` with buffer donation the update is in-place at the XLA level.
 
 Cache layouts:
- - TPU-native: (batch_cache, kv_heads, seqlen_max, head_dim), pages
-   (num_pages, kv_heads, page_size, head_dim) — seq on the sublane axis.
- - The reference layout (batch, seqlen, kv_heads, head_dim) is auto-detected
+ - native: (batch_cache, kv_heads, seqlen_max, head_dim), pages
+   (num_pages, kv_heads, page_size, head_dim). Attention reads either in
+   place (backend.decode_attention).
+ - The reference layout (batch, seqlen, kv_heads, head_dim) is accepted
    via ``cache_layout='bshd'`` and transposed (prefer allocating native).
 """
 
@@ -20,8 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flash_attn_tpu.dispatch.config import normalize_window
-from flash_attn_tpu.kernels.flash_decode import flash_attention_decode
+from flash_attn_tpu.backend import decode_attention, normalize_window
 from flash_attn_tpu.ops.rotary import apply_rotary_emb
 
 __all__ = ["flash_attn_with_kvcache", "kv_cache_update"]
@@ -42,84 +42,54 @@ def kv_cache_update(
     # batch max would otherwise index table columns beyond its allocation —
     # which default to page 0, i.e. another sequence's memory).
 ):
-    """Write new K/V into the cache at per-batch offsets.
+    """Write new K/V into the cache at per-batch offsets, in place under
+    ``jax.jit`` with the cache donated.
 
-    Implementation note (round-3 measured, v5e): an XLA scatter
-    (``cache.at[rows, :, pos].set``) lowers on TPU to a whole-cache
-    rewrite — 32 ms/step for 16 layers of (64, 16, 608, 128) bf16 caches
-    (~7.4 GB of copies), which was 2/3 of the 913M decode step. A
-    ``fori_loop`` of per-row ``dynamic_update_slice`` stays in-place but
-    pays ~25 us of while-loop sync per iteration (26 ms total at b=64 x
-    16 layers). The winner is the UNROLLED per-row DUS chain: no loop
-    machinery, in-place on the donated buffer, ~2.9 ms for the same 16
-    layers. Unrolling is capped at b <= 256 (compile-size guard; larger
-    batches fall back to the fori form). The paged multi-token append
-    keeps the scatter (runtime-varying per-page piece lengths can't be
-    static-size DUS slices); it is off the decode hot path.
+    Rows of a contiguous cache, and one token per row of a paged cache,
+    are written by an unrolled chain of per-row ``dynamic_update_slice``:
+    at the serving engine's decode shape (64 rows into a 193-page pool)
+    it took 0.093 ms against 0.305 ms for one scatter on an H100 (PERF.md,
+    kernel choices). Multi-token paged appends (prefill) keep the scatter,
+    whose per-token page lookups cannot be static-size slices; there
+    writes past ``new_lengths`` are dropped.
     """
     b, s_new = k_new.shape[0], k_new.shape[1]
     offs = cache_seqlens.astype(jnp.int32)
-    k_src = jnp.swapaxes(k_new.astype(k_cache.dtype), 1, 2)  # (b,h_k,s_new,d)
-    v_src = jnp.swapaxes(v_new.astype(v_cache.dtype), 1, 2)
-    h_k, d = k_src.shape[1], k_src.shape[3]
-    dv = v_src.shape[3]
-    dus = jax.lax.dynamic_update_slice
-    dsl = jax.lax.dynamic_slice
-
-    def _rows(fn_at):
-        """Apply per-row DUS appends; unrolled for small static batches
-        on TPU (the in-place no-loop-sync fast path); the CPU/test backend
-        keeps the fori form — the unrolled chain doubles interpret-mode
-        trace+compile time for zero benefit there."""
-        kc, vc = k_cache, v_cache
-        if b <= 256 and jax.default_backend() != "cpu":
-            for i in range(b):
-                at = fn_at(i)
-                kc = dus(kc, dsl(k_src, (i, 0, 0, 0), (1, h_k, s_new, d)), at)
-                vc = dus(vc, dsl(v_src, (i, 0, 0, 0), (1, h_k, s_new, dv)), at)
-            return kc, vc
-
-        def body(i, caches):
-            kc, vc = caches
-            at = fn_at(i)
-            kc = dus(kc, dsl(k_src, (i, 0, 0, 0), (1, h_k, s_new, d)), at)
-            vc = dus(vc, dsl(v_src, (i, 0, 0, 0), (1, h_k, s_new, dv)), at)
-            return kc, vc
-
-        return jax.lax.fori_loop(0, b, body, (kc, vc))
-
-    if block_table is not None:
+    k_src = _to_cache_dtype(k_new, k_cache.dtype)  # (b, s_new, h_k, d)
+    v_src = _to_cache_dtype(v_new, v_cache.dtype)
+    if block_table is not None and (s_new > 1 or new_lengths is not None):
         page_size = k_cache.shape[2]
         btab = block_table.astype(jnp.int32)
-        if s_new == 1:
-            return _rows(lambda i: (btab[i, offs[i] // page_size], 0,
-                                    offs[i] % page_size, 0))
         pos = offs[:, None] + jnp.arange(s_new, dtype=jnp.int32)[None, :]
-        col = pos // page_size
+        col = jnp.minimum(pos // page_size, btab.shape[1] - 1)
+        page = jnp.take_along_axis(btab, col, axis=1)  # (b, s_new)
         if new_lengths is not None:
             valid = (jnp.arange(s_new, dtype=jnp.int32)[None, :]
                      < new_lengths.astype(jnp.int32)[:, None])
-            # out-of-range column -> take clamps, but the page index is
-            # poisoned below so the write drops
-            col = jnp.minimum(col, btab.shape[1] - 1)
-        page = jnp.take_along_axis(btab, col, axis=1)  # (b, s_new)
-        if new_lengths is not None:
             page = jnp.where(valid, page, k_cache.shape[0])  # OOB -> dropped
+        # every (page, slot) target is distinct by construction; padding
+        # rows are dropped through the out-of-range page index
         inpage = pos % page_size
-        k_sc = jnp.swapaxes(k_src, 1, 2)  # (b, s_new, h_k, d) for scatter
-        v_sc = jnp.swapaxes(v_src, 1, 2)
-        # unique_indices skips XLA's scatter dedup machinery (every
-        # (page, inpage) target is distinct by construction — padding rows
-        # are dropped via the OOB page index, mode="drop"); bounds on real
-        # rows stay guarded by the capacity check upstream.
         k_cache = k_cache.at[page, :, inpage].set(
-            k_sc, unique_indices=True, mode="drop")
+            k_src, unique_indices=True, mode="drop")
         v_cache = v_cache.at[page, :, inpage].set(
-            v_sc, unique_indices=True, mode="drop")
+            v_src, unique_indices=True, mode="drop")
         return k_cache, v_cache
-    bidx = (jnp.arange(b, dtype=jnp.int32) if cache_batch_idx is None
-            else cache_batch_idx.astype(jnp.int32))
-    return _rows(lambda i: (bidx[i], 0, offs[i], 0))
+    if block_table is not None:
+        page_size = k_cache.shape[2]
+        btab = block_table.astype(jnp.int32)
+        at = lambda i: (btab[i, offs[i] // page_size], 0,
+                        offs[i] % page_size, 0)
+    else:
+        rows = (jnp.arange(b, dtype=jnp.int32) if cache_batch_idx is None
+                else cache_batch_idx.astype(jnp.int32))
+        at = lambda i: (rows[i], 0, offs[i], 0)
+    k_rows = jnp.swapaxes(k_src, 1, 2)  # (b, h_k, s_new, d)
+    v_rows = jnp.swapaxes(v_src, 1, 2)
+    for i in range(b):
+        k_cache = jax.lax.dynamic_update_slice(k_cache, k_rows[i:i + 1], at(i))
+        v_cache = jax.lax.dynamic_update_slice(v_cache, v_rows[i:i + 1], at(i))
+    return k_cache, v_cache
 
 
 def flash_attn_with_kvcache(
@@ -149,10 +119,8 @@ def flash_attn_with_kvcache(
     q_descale=None,  # (b, h_k): FP8/INT8 quantized-cache descales
     k_descale=None,
     v_descale=None,
-    num_splits: int = 0,
-    pack_gqa: Optional[bool] = None,  # accepted for drop-in parity; GQA
-    # row packing is always on here (the kernel packs query heads of one
-    # kv head into MXU rows automatically)
+    num_splits: int = 0,  # accepted for drop-in parity; unused
+    pack_gqa: Optional[bool] = None,  # accepted for drop-in parity; unused
     return_softmax_lse: bool = False,
     cache_layout: str = "native",  # "native" (b,h,s,d) | "bshd" reference
 ):
@@ -163,7 +131,7 @@ def flash_attn_with_kvcache(
     are part of the return value:
         out [, lse] = ... (k is None)
         (out, k_cache, v_cache) [, lse] = ... (k is not None)
-    Caches use the TPU-native (batch, heads, seq, dim) layout by default.
+    Caches use the native (batch, heads, seq, dim) layout by default.
     """
     b, sq, h, d = q.shape
     if block_table is not None and cache_batch_idx is not None:
@@ -195,9 +163,6 @@ def flash_attn_with_kvcache(
                 k, rotary_cos, rotary_sin, interleaved=rotary_interleaved,
                 seqlen_offsets=pos_k,
             )
-        # append happens in flash_attention_decode via kv_cache_update
-        # (unrolled in-place DUS chain — see kv_cache_update's note; an
-        # in-kernel DMA append was tried and removed, kernels/flash_decode).
         k_new, v_new = k, v
     if rotary_cos is not None:
         # q tokens sit at positions old_len-leftpad .. +sq (causal decode
@@ -229,32 +194,18 @@ def flash_attn_with_kvcache(
                     "tokens); the paged kernel would index past the table")
         except jax.errors.TracerArrayConversionError:
             oob_rows = sk_eff > capacity
-    if num_splits <= 0:
-        # reference heuristic analogue (flash_api.cpp:281): fill the chip's
-        # TensorCores. v5e has one core per chip so this resolves to 1; on
-        # Megacore parts (v4/v5p) the decode grid doubles via splits.
-        from flash_attn_tpu.dispatch.config import num_splits_heuristic
-        num_cores = 2 if "v4" in str(
-            jax.devices()[0].device_kind).lower() or "v5p" in str(
-            jax.devices()[0].device_kind).lower() else 1
-        s_max_tiles = max(1, k_cache.shape[2] // 512)
-        num_splits = num_splits_heuristic(b, num_cores, s_max_tiles)
-
-    interpret = jax.default_backend() == "cpu"
-    res = flash_attention_decode(
-        q, k_cache, v_cache, sk_eff,
-        block_table=block_table, cache_batch_idx=cache_batch_idx,
-        cache_leftpad=cache_leftpad, k_new=k_new, v_new=v_new, qv=qv,
+    if k_new is not None:
+        k_cache, v_cache = kv_cache_update(
+            k_cache, v_cache, k_new, v_new, cache_seqlens,
+            block_table=block_table, cache_batch_idx=cache_batch_idx)
+    del num_splits, pack_gqa  # accepted for drop-in parity
+    out, lse = decode_attention(
+        q, k_cache, v_cache, sk_eff, block_table=block_table,
+        cache_batch_idx=cache_batch_idx, kv_start=cache_leftpad, qv=qv,
         alibi_slopes=_norm_slopes(alibi_slopes, b),
         q_descale=q_descale, k_descale=k_descale, v_descale=v_descale,
-        softmax_scale=softmax_scale, causal=causal, window_size=window_size,
-        softcap=softcap, attention_chunk=attention_chunk,
-        num_splits=num_splits, interpret=interpret,
-    )
-    if k_new is not None:
-        out, lse, k_cache, v_cache = res
-    else:
-        out, lse = res
+        softmax_scale=softmax_scale, causal=causal, window=window_size,
+        softcap=softcap, attention_chunk=attention_chunk)
     if oob_rows is not None:
         out = jnp.where(oob_rows[:, None, None, None],
                         jnp.asarray(float("nan"), out.dtype), out)
@@ -266,6 +217,15 @@ def flash_attn_with_kvcache(
         result = (out, k_cache, v_cache)
         return result + (lse,) if return_softmax_lse else result
     return (out, lse) if return_softmax_lse else out
+
+
+def _to_cache_dtype(x, dtype):
+    """Cast new keys/values to the cache's dtype; integer caches round to
+    nearest and saturate (a plain cast would truncate toward zero)."""
+    if jnp.issubdtype(dtype, jnp.integer):
+        info = jnp.iinfo(dtype)
+        x = jnp.clip(jnp.round(x.astype(jnp.float32)), info.min, info.max)
+    return x.astype(dtype)
 
 
 def _norm_slopes(alibi_slopes, b):

@@ -1,6 +1,6 @@
 // Native data-loader: threaded gather from an mmap'd token file.
 //
-// TPU-native analogue of the reference's C++ runtime pieces for the data
+// Analogue of the reference's C++ runtime pieces for the data
 // path (the reference leans on HF datasets' mmap token cache,
 // training/src/datamodules/language_modeling_hf.py; this moves the
 // batch-gather hot loop out of Python). Exposed to Python via ctypes

@@ -1,29 +1,30 @@
 """Public scheduler-metadata API.
 
 Parity surface for the reference ``get_scheduler_metadata``
-(hopper/flash_attn_interface.py:1106 / hopper/flash_api.cpp:521): precompute
-the varlen tile schedule once and reuse it across calls with the same
-sequence-length pattern (the reference reuses it inside CUDA graphs; here it
-skips the per-call metadata recompute in tight loops).
+(hopper/flash_attn_interface.py:1106 / hopper/flash_api.cpp:521), which
+precomputes the varlen tile schedule once for reuse across calls. The
+attention paths here (cuDNN, XLA, plain) schedule their own tiles, so the
+metadata only records the problem it was made for; ``flash_attn_varlen_func``
+accepts it and ignores it.
 """
 
 from typing import NamedTuple, Optional, Tuple
 
-import jax
 import jax.numpy as jnp
 
-from flash_attn_tpu.dispatch.config import get_fwd_config, normalize_window
-from flash_attn_tpu.dispatch.varlen_meta import VarlenMeta, compute_varlen_meta
+from flash_attn_tpu.backend import normalize_window
 
 __all__ = ["get_scheduler_metadata", "SchedulerMetadata"]
 
 
 class SchedulerMetadata(NamedTuple):
-    meta: VarlenMeta
-    block_q: int
-    block_k: int
-    num_q_tiles: int
-    num_k_tiles: int
+    batch_size: int
+    max_seqlen_q: int
+    max_seqlen_k: int
+    cu_seqlens_q: jnp.ndarray
+    cu_seqlens_k: jnp.ndarray
+    causal: bool
+    window_size: Tuple[Optional[int], Optional[int]]
 
 
 def get_scheduler_metadata(
@@ -41,38 +42,14 @@ def get_scheduler_metadata(
     window_size: Tuple[int, int] = (-1, -1),
     headdim_v: Optional[int] = None,
 ) -> SchedulerMetadata:
-    """Device-computed varlen tile schedule (bands + per-token segment
-    vectors). Pass the result to ``flash_attn_varlen_func(...,
-    scheduler_metadata=)`` to skip the per-call metadata recompute — the
-    varlen kernel consumes it directly (kernels/flash_varlen.py, the
-    analogue of the reference's ``skip_scheduler_metadata_computation``
-    reuse, hopper/flash_api.cpp:1004). Block sizes in the returned
-    metadata must match the kernel call's (the interface validates)."""
-    headdim_v = headdim_v or headdim
-    window = normalize_window(tuple(window_size))
-    cfg = get_fwd_config(headdim, headdim_v, max_seqlen_q, max_seqlen_k,
-                         causal)
+    """Record the varlen problem; signature of the reference's API."""
+    del num_heads, num_heads_kv, headdim, seqused_q, seqused_k, headdim_v
     if cu_seqlens_q is None:
         cu_seqlens_q = jnp.arange(batch_size + 1, dtype=jnp.int32) * max_seqlen_q
     if cu_seqlens_k is None:
         cu_seqlens_k = jnp.arange(batch_size + 1, dtype=jnp.int32) * max_seqlen_k
-    total_q = int(batch_size * max_seqlen_q)
-    total_k = int(batch_size * max_seqlen_k)
-    bq = min(cfg.block_q, _next_pow2(total_q))
-    bk = min(cfg.block_k, _next_pow2(total_k))
-    nq = -(-total_q // bq)
-    nk = -(-total_k // bk)
-    meta = compute_varlen_meta(
-        cu_seqlens_q, cu_seqlens_k, bq, bk, nq, nk,
-        causal=causal, window_left=window[0], window_right=window[1],
-        seqused_q=seqused_q, seqused_k=seqused_k,
-    )
-    return SchedulerMetadata(meta=meta, block_q=bq, block_k=bk,
-                             num_q_tiles=nq, num_k_tiles=nk)
-
-
-def _next_pow2(n: int) -> int:
-    p = 1
-    while p < n:
-        p *= 2
-    return p
+    return SchedulerMetadata(
+        batch_size=batch_size, max_seqlen_q=max_seqlen_q,
+        max_seqlen_k=max_seqlen_k, cu_seqlens_q=cu_seqlens_q,
+        cu_seqlens_k=cu_seqlens_k, causal=causal,
+        window_size=normalize_window(tuple(window_size)))

@@ -1,10 +1,9 @@
-"""Public attention API — TPU-native parity surface for
+"""Public attention API: parity surface for
 ``flash_attn.flash_attn_interface`` (reference flash_attn/__init__.py:8-16).
 
 All functions take (batch, seqlen, nheads, head_dim) arrays like the
-reference, transpose to the TPU-friendly (batch, nheads, seqlen, head_dim)
-layout internally (XLA fuses the transposes into neighbors), and are
-differentiable via ``jax.custom_vjp``.
+reference and hand them to :mod:`flash_attn_tpu.backend`, which chooses the
+implementation. Gradients are JAX autodiff of the chosen forward.
 """
 
 import functools
@@ -14,18 +13,8 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 
-from flash_attn_tpu.dispatch.config import normalize_window
-from flash_attn_tpu.kernels.flash_fwd import flash_attention_fwd
-from flash_attn_tpu.kernels.flash_bwd_fused import (
-    flash_attention_bwd_auto as flash_attention_bwd,
-)
-from flash_attn_tpu.kernels.flash_varlen import (
-    flash_attention_varlen_bwd,
-    flash_attention_varlen_fwd,
-)
-from flash_attn_tpu.kernels.flash_varlen_persistent import (
-    flash_attention_varlen_fwd_persistent,
-)
+from flash_attn_tpu import backend
+from flash_attn_tpu.backend import normalize_window
 
 __all__ = [
     "flash_attn_func",
@@ -37,10 +26,6 @@ __all__ = [
 ]
 
 
-def _use_interpret() -> bool:
-    return jax.default_backend() == "cpu"
-
-
 def _reconstruct_s_dmask(q, k, lse, *, softmax_scale, causal, window_size,
                          softcap, attention_chunk, sink_token_length,
                          alibi_slopes, dropout_p, dropout_seed):
@@ -50,9 +35,9 @@ def _reconstruct_s_dmask(q, k, lse, *, softmax_scale, causal, window_size,
     with DROPPED entries negated when dropout is active (tests recover
     probs = abs(S_dmask) and keep-mask = S_dmask >= 0).
 
-    Rows are normalized by the KERNEL's lse (not an independent softmax),
-    so every row reproduces the kernel's own normalization; the dropout
-    sign pattern replays the kernel's counter-hash RNG exactly
+    Rows are normalized by the returned lse (not an independent softmax),
+    so every row reproduces the forward's own normalization; the dropout
+    sign pattern replays the forward's counter-hash RNG exactly
     (kernels/dropout_rng.dropout_keep, same seed and global coordinates).
     """
     from flash_attn_tpu.kernels.dropout_rng import dropout_mask_reference
@@ -93,118 +78,6 @@ def _reconstruct_s_dmask(q, k, lse, *, softmax_scale, causal, window_size,
     return probs
 
 
-# Differentiable core: closed over static config via functools.partial at
-# custom_vjp boundary.
-@functools.partial(
-    jax.custom_vjp,
-    nondiff_argnums=(7, 8, 9, 10, 11, 12, 13, 14, 15, 16),
-)
-def _flash_attn(q, k, v, alibi_slopes, learnable_sink, dropout_seed,
-                aux_tensors,
-                softmax_scale, causal, window_size, softcap,
-                attention_chunk, sink_token_length, deterministic, dropout_p,
-                score_mod, mask_mod):
-    (out, lse), _ = _flash_attn_fwd_res(
-        q, k, v, alibi_slopes, learnable_sink, dropout_seed, aux_tensors,
-        softmax_scale, causal, window_size, softcap,
-        attention_chunk, sink_token_length, deterministic, dropout_p,
-        score_mod, mask_mod,
-    )
-    return out, lse
-
-
-def _flash_attn_fwd_res(q, k, v, alibi_slopes, learnable_sink, dropout_seed,
-                        aux_tensors,
-                        softmax_scale, causal, window_size, softcap,
-                        attention_chunk, sink_token_length, deterministic,
-                        dropout_p, score_mod=None, mask_mod=None):
-    qt = jnp.swapaxes(q, 1, 2)
-    kt = jnp.swapaxes(k, 1, 2)
-    vt = jnp.swapaxes(v, 1, 2)
-    out_t, lse = flash_attention_fwd(
-        qt, kt, vt,
-        alibi_slopes=alibi_slopes,
-        learnable_sink=learnable_sink,
-        dropout_p=dropout_p,
-        dropout_seed=dropout_seed,
-        softmax_scale=softmax_scale,
-        causal=causal,
-        window_size=window_size,
-        softcap=softcap,
-        attention_chunk=attention_chunk,
-        sink_token_length=sink_token_length,
-        score_mod=score_mod,
-        mask_mod=mask_mod,
-        aux_tensors=aux_tensors,
-        interpret=_use_interpret(),
-    )
-    out = jnp.swapaxes(out_t, 1, 2)
-    return (out, lse), (q, k, v, alibi_slopes, learnable_sink, dropout_seed,
-                        aux_tensors, out, lse)
-
-
-def _flash_attn_bwd(softmax_scale, causal, window_size, softcap,
-                    attention_chunk, sink_token_length, deterministic,
-                    dropout_p, score_mod, mask_mod, residuals, g):
-    (q, k, v, alibi_slopes, learnable_sink, dropout_seed, aux_tensors,
-     out, lse) = residuals
-    # g = (g_out, g_lse); lse is an inspection output (reference returns it
-    # from _flash_attn_forward the same way) — its cotangent is dropped.
-    # Everything stays bshd: the fused backward is bshd-native (the round-1
-    # swapaxes around the bwd were ~15% of whole-grad time).
-    grads = flash_attention_bwd(
-        g[0], q, k, v, out, lse,
-        alibi_slopes=alibi_slopes,
-        learnable_sink=learnable_sink,
-        dropout_p=dropout_p,
-        dropout_seed=dropout_seed,
-        softmax_scale=softmax_scale,
-        causal=causal,
-        window_size=window_size,
-        softcap=softcap,
-        attention_chunk=attention_chunk,
-        sink_token_length=sink_token_length,
-        score_mod=score_mod,
-        mask_mod=mask_mod,
-        aux_tensors=aux_tensors,
-        interpret=_use_interpret(),
-    )
-    if aux_tensors:
-        dq, dk, dv, daux = grads
-        daux = tuple(da.astype(ax.dtype)
-                     for da, ax in zip(daux, aux_tensors))
-    else:
-        dq, dk, dv = grads
-        daux = ()
-    dq = dq.astype(q.dtype)
-    dk = dk.astype(k.dtype)
-    dv = dv.astype(v.dtype)
-    # No gradient for alibi slopes (reference treats them as
-    # non-learnable too).
-    d_slopes = None if alibi_slopes is None else jnp.zeros_like(alibi_slopes)
-    # Learnable-sink gradient (the reference computes dsink in its bwd,
-    # hopper-style LearnableSinkBwdTensors): the sink logit enters ONLY
-    # the softmax denominator, so with delta = rowsum(dout . out),
-    #   dsink_h = -sum_{b,i} exp(sink_h - lse_{b,h,i}) * delta_{b,h,i}
-    # — an XLA epilogue on saved residuals, no kernel change. dq/dk/dv
-    # are already exact: p_ij = exp(s_ij - lse) folds the sink's effect
-    # through lse.
-    d_sink = None
-    if learnable_sink is not None:
-        delta = jnp.sum(g[0].astype(jnp.float32) * out.astype(jnp.float32),
-                        axis=-1)                      # (b, sq, h)
-        delta = jnp.swapaxes(delta, 1, 2)             # (b, h, sq)
-        sink = learnable_sink.astype(jnp.float32)[None, :, None]
-        lse_safe = jnp.where(jnp.isfinite(lse), lse, jnp.inf)
-        w = jnp.exp(sink - lse_safe)                  # (b, h, sq)
-        d_sink = (-(w * delta).sum(axis=(0, 2))).astype(learnable_sink.dtype)
-    d_seed = None if dropout_seed is None else jnp.zeros_like(dropout_seed)
-    return dq, dk, dv, d_slopes, d_sink, d_seed, daux
-
-
-_flash_attn.defvjp(_flash_attn_fwd_res, _flash_attn_bwd)
-
-
 def flash_attn_func(
     q,
     k,
@@ -215,7 +88,7 @@ def flash_attn_func(
     window_size: Tuple[int, int] = (-1, -1),
     softcap: float = 0.0,
     alibi_slopes=None,
-    deterministic: bool = True,
+    deterministic: bool = False,
     return_attn_probs: bool = False,
     attention_chunk: int = 0,
     sink_token_length: int = 0,
@@ -232,6 +105,9 @@ def flash_attn_func(
     """Drop-in analogue of the reference ``flash_attn_func``
     (flash_attn/flash_attn_interface.py:1156).
 
+    ``deterministic=True`` asks for bitwise-repeatable gradients (the
+    backend then avoids cuDNN, whose backward may differ between runs).
+
     Arguments:
         q: (batch, seqlen_q, nheads, head_dim)
         k: (batch, seqlen_k, nheads_k, head_dim)  — nheads must divide by nheads_k (GQA/MQA)
@@ -241,7 +117,7 @@ def flash_attn_func(
         out: (batch, seqlen_q, nheads, head_dim_v); if return_attn_probs,
         the tuple (out, softmax_lse, S_dmask) — lse (batch, nheads,
         seqlen_q) fp32, S_dmask (batch, nheads, seqlen_q, seqlen_k) fp32
-        post-softmax probabilities normalized by the kernel's lse, dropped
+        post-softmax probabilities normalized by the returned lse, dropped
         entries negated when dropout_p > 0 (testing-only, the reference's
         contract: flash_attn/flash_attn_interface.py:879); None on the
         flex (score_mod/mask_mod) and fp8/qv paths.
@@ -265,7 +141,7 @@ def flash_attn_func(
             and v_descale is None):
         # Differentiable MLA qv term via the concat identity:
         #   q.k^T + qv.v^T == [q, qv].[k, v]^T,
-        # so the qv path IS the standard kernel at head_dim d+dv — forward
+        # so the qv path is standard attention at head_dim d+dv — forward
         # and backward (dq = d[q,qv][:, :d], dqv = d[q,qv][:, d:], and the
         # score-side dv arrives as d[k,v][:, d:], added by autodiff to the
         # PV-side dv). The reference has qv grads only in its sparse-MLA
@@ -274,35 +150,26 @@ def flash_attn_func(
         q = jnp.concatenate([q, qv], axis=-1)
         k = jnp.concatenate([k, v], axis=-1)
         qv = None
-    if (q_descale is not None or k_descale is not None
-            or v_descale is not None or qv is not None):
-        # FP8 forward path (no backward, matching the reference's
-        # fp8-fwd-only support; fp8 MLA-qv keeps the qv-specialized kernel)
-        qt, kt, vt = (jnp.swapaxes(x, 1, 2) for x in (q, k, v))
-        out_t, lse = flash_attention_fwd(
-            qt, kt, vt, alibi_slopes=alibi_slopes,
-            learnable_sink=learnable_sink,
-            qv=None if qv is None else jnp.swapaxes(qv, 1, 2),
-            q_descale=q_descale, k_descale=k_descale, v_descale=v_descale,
-            softmax_scale=softmax_scale, causal=causal,
-            window_size=window_size, softcap=softcap,
-            attention_chunk=attention_chunk,
-            sink_token_length=sink_token_length, interpret=_use_interpret(),
-        )
-        out = jnp.swapaxes(out_t, 1, 2)
+    descale = (q_descale is not None or k_descale is not None
+               or v_descale is not None)
+    out, lse = backend.attention(
+        q, k, v, softmax_scale=softmax_scale, causal=causal,
+        window=window_size, softcap=softcap, alibi_slopes=alibi_slopes,
+        learnable_sink=learnable_sink, dropout_p=dropout_p,
+        deterministic=deterministic,
+        dropout_seed=dropout_seed, score_mod=score_mod, mask_mod=mask_mod,
+        aux_tensors=tuple(aux_tensors) if aux_tensors else (),
+        attention_chunk=attention_chunk,
+        sink_token_length=sink_token_length, q_descale=q_descale,
+        k_descale=k_descale, v_descale=v_descale, qv=qv)
+    if descale or qv is not None:
+        # fp8 / fp8-qv forward: inference only, no S_dmask (reference
+        # contract); the output is bf16
         return (out, lse, None) if return_attn_probs else out
-    out, lse = _flash_attn(
-        q, k, v, alibi_slopes, learnable_sink, dropout_seed,
-        tuple(aux_tensors) if aux_tensors else (),
-        softmax_scale, causal, window_size, softcap,
-        attention_chunk, sink_token_length, deterministic, dropout_p,
-        score_mod, mask_mod,
-    )
     if return_attn_probs:
         # Reference contract: (out, lse, S_dmask)
-        # (flash_attn/flash_attn_interface.py:879). lse rides out of the
-        # same custom_vjp call (no second forward); S_dmask is a testing-
-        # only full-matrix reconstruction normalized by the kernel's lse.
+        # (flash_attn/flash_attn_interface.py:879). S_dmask is a testing-
+        # only full-matrix reconstruction normalized by the returned lse.
         if score_mod is not None or mask_mod is not None:
             s_dmask = None  # flex hooks have no S_dmask analogue
         else:
@@ -320,84 +187,24 @@ def flash_attn_func(
 # ----------------------------- varlen ------------------------------------
 
 
-@functools.partial(
-    jax.custom_vjp,
-    nondiff_argnums=(11, 12, 13, 14, 15, 16, 17, 18, 19, 20),
-)
-def _flash_attn_varlen(q, k, v, cu_seqlens_q, cu_seqlens_k,
-                       seqused_q, seqused_k, alibi_slopes, learnable_sink,
-                       dropout_seed, meta, max_seqlen_q, max_seqlen_k,
-                       softmax_scale, causal, window_size, softcap,
-                       attention_chunk, dropout_p, block_q, block_k):
-    (out, lse), _ = _flash_attn_varlen_fwd_res(
-        q, k, v, cu_seqlens_q, cu_seqlens_k, seqused_q, seqused_k,
-        alibi_slopes, learnable_sink, dropout_seed, meta, max_seqlen_q,
-        max_seqlen_k, softmax_scale, causal, window_size, softcap,
-        attention_chunk, dropout_p, block_q, block_k,
-    )
-    return out, lse
+def _pad_by_sequence(x, cu_seqlens, max_seqlen: int):
+    """Packed (total, ...) -> (b, max_seqlen, ...): row i of sequence j is
+    token cu[j] + i; rows past a sequence's end are zero."""
+    pos = jnp.arange(max_seqlen, dtype=jnp.int32)[None, :]
+    idx = cu_seqlens[:-1, None].astype(jnp.int32) + pos
+    idx = jnp.where(idx < cu_seqlens[1:, None], idx, x.shape[0])
+    return jnp.take(x, idx, axis=0, mode="fill", fill_value=0)
 
 
-def _flash_attn_varlen_fwd_res(q, k, v, cu_seqlens_q, cu_seqlens_k,
-                               seqused_q, seqused_k, alibi_slopes,
-                               learnable_sink, dropout_seed, meta,
-                               max_seqlen_q, max_seqlen_k,
-                               softmax_scale, causal, window_size, softcap,
-                               attention_chunk, dropout_p, block_q, block_k):
-    # Persistent flat-walk kernel (round 5) by default: one grid step per
-    # head streams every band back-to-back through a 4-deep DMA pipeline.
-    # ALiBi stays on the banded kernel — the persistent kernel derives
-    # slopes by per-segment select, which scales with batch size.
-    fwd_fn = (flash_attention_varlen_fwd if alibi_slopes is not None
-              else flash_attention_varlen_fwd_persistent)
-    out, lse = fwd_fn(
-        q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
-        seqused_q=seqused_q, seqused_k=seqused_k, alibi_slopes=alibi_slopes,
-        learnable_sink=learnable_sink,
-        dropout_p=dropout_p, dropout_seed=dropout_seed,
-        softmax_scale=softmax_scale, causal=causal, window_size=window_size,
-        softcap=softcap, attention_chunk=attention_chunk,
-        meta=meta, block_q=block_q, block_k=block_k,
-        interpret=_use_interpret(),
-    )
-    return (out, lse), (q, k, v, cu_seqlens_q, cu_seqlens_k, seqused_q,
-                        seqused_k, alibi_slopes, learnable_sink,
-                        dropout_seed, out, lse)
-
-
-def _flash_attn_varlen_bwd(max_seqlen_q, max_seqlen_k, softmax_scale, causal,
-                           window_size, softcap, attention_chunk, dropout_p,
-                           block_q, block_k, residuals, g):
-    (q, k, v, cu_seqlens_q, cu_seqlens_k, seqused_q, seqused_k,
-     alibi_slopes, learnable_sink, dropout_seed, out, lse) = residuals
-    # g = (g_out, g_lse); lse is an inspection output — cotangent dropped.
-    # dq/dk/dv are exact WITH a sink: p_ij = exp(s_ij - lse) folds the
-    # sink's denominator effect through the saved lse.
-    dq, dk, dv = flash_attention_varlen_bwd(
-        g[0], q, k, v, out, lse, cu_seqlens_q, cu_seqlens_k,
-        max_seqlen_q, max_seqlen_k, seqused_q=seqused_q, seqused_k=seqused_k,
-        alibi_slopes=alibi_slopes, dropout_p=dropout_p,
-        dropout_seed=dropout_seed, softmax_scale=softmax_scale, causal=causal,
-        window_size=window_size, softcap=softcap,
-        attention_chunk=attention_chunk, interpret=_use_interpret(),
-    )
-    zeros_like_opt = lambda x: None if x is None else jnp.zeros_like(x)
-    d_sink = None
-    if learnable_sink is not None:
-        # dsink_h = -sum_t exp(sink_h - lse_{h,t}) * rowsum(g . out)_t
-        # (the sink logit enters only the softmax denominator)
-        delta = jnp.sum(g[0].astype(jnp.float32) * out.astype(jnp.float32),
-                        axis=-1)                       # (total_q, h)
-        sink = learnable_sink.astype(jnp.float32)[:, None]   # (h, 1)
-        lse_safe = jnp.where(jnp.isfinite(lse), lse, jnp.inf)  # (h, total_q)
-        w = jnp.exp(sink - lse_safe)
-        d_sink = (-(w * delta.T).sum(axis=1)).astype(learnable_sink.dtype)
-    return (dq.astype(q.dtype), dk.astype(k.dtype), dv.astype(v.dtype),
-            None, None, None, None, zeros_like_opt(alibi_slopes),
-            d_sink, zeros_like_opt(dropout_seed), None)
-
-
-_flash_attn_varlen.defvjp(_flash_attn_varlen_fwd_res, _flash_attn_varlen_bwd)
+def _unpad_by_sequence(x, cu_seqlens, total: int, fill_value=0):
+    """Inverse of :func:`_pad_by_sequence`: (b, max_seqlen, ...) ->
+    (total, ...); tokens past cu_seqlens[-1] get ``fill_value``."""
+    b = cu_seqlens.shape[0] - 1
+    tok = jnp.arange(total, dtype=jnp.int32)
+    seq = jnp.clip(jnp.searchsorted(cu_seqlens, tok, side="right") - 1,
+                   0, b - 1)
+    pos = jnp.where(tok < cu_seqlens[-1], tok - cu_seqlens[seq], x.shape[1])
+    return x.at[seq, pos].get(mode="fill", fill_value=fill_value)
 
 
 def flash_attn_varlen_func(
@@ -414,7 +221,7 @@ def flash_attn_varlen_func(
     window_size: Tuple[int, int] = (-1, -1),
     softcap: float = 0.0,
     alibi_slopes=None,
-    deterministic: bool = True,
+    deterministic: bool = False,
     return_attn_probs: bool = False,
     seqused_q=None,
     seqused_k=None,
@@ -434,12 +241,12 @@ def flash_attn_varlen_func(
 
     With ``block_table`` (the reference's paged-KV varlen path,
     hopper/flash_api.cpp:672 / flash_attn/cute/interface.py:3419): ``k``/``v``
-    are paged caches in the TPU-native layout (num_pages, nheads_k,
-    page_size, head_dim) — note the reference keeps (page_size, nheads_k, d);
-    seq-major pages ride the sublane axis here. Per-sequence KV lengths come
-    from ``seqused_k`` (or cu_seqlens_k deltas), and the path is
-    forward-only (chunked-prefill serving; matches the reference where
-    paged attention has no backward).
+    are paged caches in this package's pool layout (num_pages, nheads_k,
+    page_size, head_dim); the reference keeps (page_size, nheads_k, d).
+    Per-sequence KV lengths come from ``seqused_k`` (or cu_seqlens_k
+    deltas); ``cu_seqlens_k`` may then be None. The path is forward-only
+    (chunked-prefill serving; matches the reference where paged attention
+    has no backward). ``scheduler_metadata`` is accepted and unused.
 
     Returns out (total_q, nheads, head_dim_v); with return_attn_probs, the
     tuple (out, lse (nheads, total_q)).
@@ -466,32 +273,44 @@ def flash_attn_varlen_func(
             q.shape[-1] if qv is None else q.shape[-1] + v.shape[-1])
     if qv is not None:
         # MLA qv term via the concat identity (same mechanism as the dense
-        # path): q.k^T + qv.v^T == [q, qv].[k, v]^T — forward AND backward
-        # ride the standard varlen kernel at head_dim d + dv.
+        # path): q.k^T + qv.v^T == [q, qv].[k, v]^T, forward and backward.
         q = jnp.concatenate([q, qv], axis=-1)
         k = jnp.concatenate([k, v], axis=-1)
-    window_size = normalize_window(tuple(window_size))
+    del scheduler_metadata  # the padded dense path needs no tile schedule
     if alibi_slopes is not None and alibi_slopes.ndim == 1:
         b = cu_seqlens_q.shape[0] - 1
         alibi_slopes = jnp.broadcast_to(
-            alibi_slopes[None], (b, alibi_slopes.shape[0])
-        )
-    meta = None
-    if scheduler_metadata is not None:
-        meta = scheduler_metadata.meta
-        block_q = scheduler_metadata.block_q
-        block_k = scheduler_metadata.block_k
+            alibi_slopes[None], (b, alibi_slopes.shape[0]))
+    # unpad -> per-sequence pad -> dense path with lengths -> repack
+    q_lengths = (cu_seqlens_q[1:] - cu_seqlens_q[:-1]
+                 if seqused_q is None else seqused_q).astype(jnp.int32)
+    if (cu_seqlens_k is cu_seqlens_q and seqused_k is None
+            and seqused_q is None):
+        kv_lengths = q_lengths  # one object: self-attention masks align
     else:
-        block_q = block_k = None
-    out, lse = _flash_attn_varlen(
-        q, k, v, cu_seqlens_q, cu_seqlens_k, seqused_q, seqused_k,
-        alibi_slopes, learnable_sink, dropout_seed, meta, int(max_seqlen_q),
-        int(max_seqlen_k), softmax_scale, causal, window_size, softcap,
-        attention_chunk, dropout_p, block_q, block_k,
-    )
+        kv_lengths = (cu_seqlens_k[1:] - cu_seqlens_k[:-1]
+                      if seqused_k is None else seqused_k).astype(jnp.int32)
+    max_q, max_k = int(max_seqlen_q), int(max_seqlen_k)
+    out, lse = backend.attention(
+        _pad_by_sequence(q, cu_seqlens_q, max_q),
+        _pad_by_sequence(k, cu_seqlens_k, max_k),
+        _pad_by_sequence(v, cu_seqlens_k, max_k),
+        softmax_scale=softmax_scale, causal=causal, window=window_size,
+        softcap=softcap, alibi_slopes=alibi_slopes,
+        learnable_sink=learnable_sink, dropout_p=dropout_p,
+        dropout_seed=dropout_seed, deterministic=deterministic,
+        # dropout coordinates are packed token indices, bh = head
+        dropout_offsets=(cu_seqlens_q[:-1].astype(jnp.int32),
+                         cu_seqlens_k[:-1].astype(jnp.int32), 0),
+        attention_chunk=attention_chunk, q_lengths=q_lengths,
+        kv_lengths=kv_lengths)
+    total_q = q.shape[0]
+    out = _unpad_by_sequence(out, cu_seqlens_q, total_q)
     if return_attn_probs:
         # (out, lse, None): the packed-varlen S_dmask reconstruction is not
         # provided (testing-only in the reference; use the dense path).
+        lse = _unpad_by_sequence(jnp.swapaxes(lse, 1, 2), cu_seqlens_q,
+                                 total_q, fill_value=-jnp.inf).T
         return out, lse, None
     return out
 
@@ -501,92 +320,37 @@ def _varlen_paged_fwd(q, k_cache, v_cache, cu_seqlens_q, max_seqlen_q,
                       window_size, softcap, q_descale, k_descale, v_descale,
                       return_attn_probs, qv=None, learnable_sink=None,
                       seqused_q=None):
-    """Packed-varlen chunked prefill against the paged cache via the
-    persistent flat-walk kernel (kernels/flash_varlen_paged.py) — no
-    pad-to-max gather (the round-4 dense front end paid full padding tax
-    on mixed lengths, VERDICT r4 weak #7).
-
-    ``qv`` is the MLA extra query (absorbed DeepSeek chunked prefill
-    against a paged cache — reference cute/interface.py:3419-3478); it
-    rides the concat identity q||qv vs K||V, which needs d and dv to be
-    lane (128) multiples — true for MLA's 576/512. Sub-128 head dims with
-    qv fall back to the dense-padded kernel (flash_paged_prefill.py)."""
-    from flash_attn_tpu.kernels.flash_varlen_paged import (
-        flash_attention_varlen_paged_fwd,
-    )
-
-    total_q, h, d = q.shape
-    dv = v_cache.shape[-1]
-    if qv is not None and (d % 128 or dv % 128):
-        return _varlen_paged_fwd_dense(
-            q, k_cache, v_cache, cu_seqlens_q, max_seqlen_q, block_table,
-            seqlens_k, softmax_scale=softmax_scale, causal=causal,
-            window_size=window_size, softcap=softcap, q_descale=q_descale,
-            k_descale=k_descale, v_descale=v_descale,
-            return_attn_probs=return_attn_probs, qv=qv,
-            learnable_sink=learnable_sink)
-    kv_concat_dim = 0
-    if qv is not None:
-        if softmax_scale is None:
-            softmax_scale = 1.0 / math.sqrt(d + qv.shape[-1])
-        q = jnp.concatenate([q, qv], axis=-1)
-        kv_concat_dim = d
-    out, lse = flash_attention_varlen_paged_fwd(
-        q, k_cache, v_cache, cu_seqlens_q, int(max_seqlen_q),
-        jnp.asarray(seqlens_k, jnp.int32), block_table,
-        seqused_q=seqused_q,
-        q_descale=q_descale, k_descale=k_descale, v_descale=v_descale,
-        learnable_sink=learnable_sink, softmax_scale=softmax_scale,
-        causal=causal, window_size=normalize_window(tuple(window_size)),
-        softcap=softcap, kv_concat_dim=kv_concat_dim,
-        interpret=_use_interpret(),
-    )
-    if return_attn_probs:
-        return out, lse
-    return out
-
-
-def _varlen_paged_fwd_dense(q, k_cache, v_cache, cu_seqlens_q, max_seqlen_q,
-                            block_table, seqlens_k, *, softmax_scale, causal,
-                            window_size, softcap, q_descale, k_descale,
-                            v_descale, return_attn_probs, qv=None,
-                            learnable_sink=None):
-    """Dense-padded fallback (pack -> pad per sequence -> dense paged
-    kernel -> unpack) for the sub-128-lane qv case only."""
-    from flash_attn_tpu.kernels.flash_paged_prefill import (
-        flash_attention_paged_prefill,
-    )
-
-    total_q, h, d = q.shape
+    """Packed-varlen chunked prefill against a paged cache: pad the queries
+    per sequence, gather each row's pages through ``block_table`` into
+    (b, pages * page_size, h_k, d), and run the dense path with key
+    lengths. A prefill chunk does hundreds of flops per gathered KV byte,
+    so the gather copy is small beside the attention."""
+    total_q = q.shape[0]
     b = cu_seqlens_q.shape[0] - 1
-    sq_max = int(max_seqlen_q)
-    seqused_q = (cu_seqlens_q[1:] - cu_seqlens_q[:-1]).astype(jnp.int32)
+    if softmax_scale is None:
+        softmax_scale = 1.0 / math.sqrt(
+            q.shape[-1] if qv is None else q.shape[-1] + v_cache.shape[-1])
+    q_lengths = (cu_seqlens_q[1:] - cu_seqlens_q[:-1]
+                 if seqused_q is None else seqused_q).astype(jnp.int32)
 
-    pos = jnp.arange(sq_max, dtype=jnp.int32)[None, :]
-    gather_idx = jnp.clip(cu_seqlens_q[:-1, None] + pos, 0, total_q - 1)
-    q_dense = q[gather_idx.reshape(-1)].reshape(b, sq_max, h, d)
-    qv_dense = None
-    if qv is not None:
-        qv_dense = qv[gather_idx.reshape(-1)].reshape(
-            b, sq_max, h, qv.shape[-1])
+    def dense_kv(cache):
+        pages = backend.gather_pages(cache, block_table)  # (b,P,h_k,ps,d)
+        return jnp.swapaxes(pages, 2, 3).reshape(
+            b, -1, cache.shape[1], cache.shape[3])
 
-    out_dense, lse_dense = flash_attention_paged_prefill(
-        q_dense, k_cache, v_cache, seqused_q,
-        jnp.asarray(seqlens_k, jnp.int32), block_table,
-        qv=qv_dense, learnable_sink=learnable_sink,
-        q_descale=q_descale, k_descale=k_descale, v_descale=v_descale,
-        softmax_scale=softmax_scale, causal=causal,
-        window_size=normalize_window(tuple(window_size)), softcap=softcap,
-        interpret=_use_interpret(),
-    )
-
-    tok = jnp.arange(total_q, dtype=jnp.int32)
-    seq_of = jnp.searchsorted(cu_seqlens_q, tok, side="right") - 1
-    seq_of = jnp.clip(seq_of, 0, b - 1)
-    pos_of = tok - cu_seqlens_q[seq_of]
-    out = out_dense[seq_of, pos_of]           # (total_q, h, dv)
+    max_q = int(max_seqlen_q)
+    qp = _pad_by_sequence(q, cu_seqlens_q, max_q)
+    qvp = None if qv is None else _pad_by_sequence(qv, cu_seqlens_q, max_q)
+    out, lse = backend.attention(
+        qp, dense_kv(k_cache), dense_kv(v_cache),
+        softmax_scale=softmax_scale, causal=causal, window=window_size,
+        softcap=softcap, learnable_sink=learnable_sink, q_descale=q_descale,
+        k_descale=k_descale, v_descale=v_descale, qv=qvp,
+        q_lengths=q_lengths, kv_lengths=jnp.asarray(seqlens_k, jnp.int32))
+    out = _unpad_by_sequence(out, cu_seqlens_q, total_q)
     if return_attn_probs:
-        lse = lse_dense[seq_of, :, pos_of].T  # (h, total_q)
+        lse = _unpad_by_sequence(jnp.swapaxes(lse, 1, 2), cu_seqlens_q,
+                                 total_q, fill_value=-jnp.inf).T
         return out, lse
     return out
 
@@ -601,7 +365,7 @@ def flash_attn_varlen_qkvpacked_func(
     window_size: Tuple[int, int] = (-1, -1),
     softcap: float = 0.0,
     alibi_slopes=None,
-    deterministic: bool = True,
+    deterministic: bool = False,
     return_attn_probs: bool = False,
 ):
     """Parity: flash_attn/flash_attn_interface.py:544 (varlen qkvpacked)."""
@@ -622,7 +386,7 @@ def flash_attn_varlen_kvpacked_func(
     window_size: Tuple[int, int] = (-1, -1),
     softcap: float = 0.0,
     alibi_slopes=None,
-    deterministic: bool = True,
+    deterministic: bool = False,
     return_attn_probs: bool = False,
 ):
     """Parity: flash_attn/flash_attn_interface.py:706 (varlen kvpacked)."""
@@ -643,7 +407,7 @@ def flash_attn_qkvpacked_func(
     window_size: Tuple[int, int] = (-1, -1),
     softcap: float = 0.0,
     alibi_slopes=None,
-    deterministic: bool = True,
+    deterministic: bool = False,
     return_attn_probs: bool = False,
     dropout_rng=None,
 ):
@@ -666,7 +430,7 @@ def flash_attn_kvpacked_func(
     window_size: Tuple[int, int] = (-1, -1),
     softcap: float = 0.0,
     alibi_slopes=None,
-    deterministic: bool = True,
+    deterministic: bool = False,
     return_attn_probs: bool = False,
     dropout_rng=None,
 ):

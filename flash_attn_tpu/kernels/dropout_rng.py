@@ -4,10 +4,11 @@ The reference drops attention probabilities with a Philox counter keyed on
 (batch, head, row, col) so the backward pass can regenerate the identical
 mask without storing it (csrc/flash_attn/src/dropout.h, philox.cuh). Here
 the same contract is met with a stateless integer hash (murmur3-finalizer
-rounds) in plain jnp — it runs identically inside Pallas kernels (compiled
-or interpret mode) and in test code, so tests rebuild the exact mask the
-kernel used (the analogue of the reference's returned S_dmask pattern,
-tests/test_flash_attn.py dropout checks).
+rounds) in plain jnp: the attention path (backend._attention_plain) and
+test code compute the same mask from the same global coordinates, so
+tests rebuild the exact mask the forward used (the analogue of the
+reference's returned S_dmask pattern, tests/test_flash_attn.py dropout
+checks).
 """
 
 import jax
@@ -17,8 +18,6 @@ __all__ = ["dropout_keep", "dropout_mask_reference"]
 
 import numpy as np
 
-# numpy scalars inline as jaxpr literals (no captured constant arrays,
-# which Pallas kernels reject).
 _M1 = np.uint32(0x9E3779B1)
 _M2 = np.uint32(0x85EBCA77)
 _M3 = np.uint32(0xC2B2AE3D)
@@ -51,8 +50,8 @@ def dropout_keep(seed, bh, rows, cols, p: float):
 
 def dropout_mask_reference(seed, batch: int, nheads: int, seqlen_q: int,
                            seqlen_k: int, p: float):
-    """Full (b, h, sq, sk) keep mask — must match what the kernels generate
-    block-wise (same hash, global coordinates)."""
+    """Full (b, h, sq, sk) keep mask: what the dense attention path draws
+    (same hash, global coordinates, bh = b * nheads + h)."""
     rows = jnp.arange(seqlen_q, dtype=jnp.int32)[:, None]
     cols = jnp.arange(seqlen_k, dtype=jnp.int32)[None, :]
     masks = []

@@ -1,166 +1,53 @@
-"""Block-sparse flash attention (FlexAttention-style).
+"""Block-sparse attention (FlexAttention-style).
 
 Parity surface for the reference block sparsity
-(flash_attn/cute/block_sparsity.py:17 ``BlockSparseTensors`` —
-kv_num_blocks/kv_indices per q tile — and the FA1-era
-flash_blocksparse_attention.py). The kernel walks only the KV tiles listed
-for each q tile: indices live in SMEM (scalar prefetch) and drive a manual
-double-buffered HBM->VMEM DMA pipeline (index-map scalar reads are compile
-poison on Mosaic; body reads are cheap — same design as the decode kernel).
-
-The mask semantics: a listed tile is computed fully (optionally intersected
-with the causal mask); unlisted tiles contribute nothing. ``blockmask_to_kv_indices``
-converts a dense (num_q_tiles, num_kv_tiles) bool mask — the analogue of the
-reference's ``convert_blockmask`` / ``fast_sampling`` mask_mod conversion.
+(flash_attn/cute/block_sparsity.py:17 ``BlockSparseTensors``:
+kv_num_blocks/kv_indices per q tile, and the FA1-era
+flash_blocksparse_attention.py). The listed tiles expand to an element
+mask that the plain attention path applies; a listed tile is computed
+fully (optionally intersected with the causal mask), unlisted tiles
+contribute nothing. ``blockmask_to_kv_indices`` converts a dense
+(num_q_tiles, num_kv_tiles) bool mask, the analogue of the reference's
+``convert_blockmask``.
 """
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-LOG2E = math.log2(math.e)
-LN2 = math.log(2.0)
-NEG_INF = float("-inf")
+from flash_attn_tpu import backend
 
-__all__ = ["flash_attention_blocksparse_fwd",
-           "flash_attention_blocksparse_bwd",
-           "flash_attention_blocksparse", "blockmask_to_kv_indices"]
+__all__ = ["flash_attention_blocksparse_fwd", "flash_attention_blocksparse",
+           "blockmask_to_kv_indices"]
 
 
 def blockmask_to_kv_indices(blockmask):
     """(nq, nk) bool -> (kv_num (nq,), kv_indices (nq, nk) int32).
 
-    Listed tiles are front-packed per row in ascending order (deterministic,
-    like compute_dq_write_order's fixed ordering)."""
-    nq, nk = blockmask.shape
+    Listed tiles are front-packed per row in ascending order."""
     order = jnp.argsort(~blockmask, axis=1, stable=True)
     kv_num = blockmask.sum(axis=1).astype(jnp.int32)
     return kv_num, order.astype(jnp.int32)
 
 
-def _bs_kernel(
-    kv_num_ref, kv_idx_ref,   # scalar prefetch: (nq,), (nq, nk)
-    *refs,
-    block_q, block_k, seqlen_q, seqlen_k, causal, scale_log2, out_dtype,
-):
-    (q_ref, kc_ref, vc_ref, out_ref, lse_ref,
-     kbuf, vbuf, sems, acc, m_s, l_s) = refs
-
-    h_idx = pl.program_id(0)
-    i = pl.program_id(1)
-    n_tiles = kv_num_ref[i]
-
-    acc[...] = jnp.zeros_like(acc)
-    m_s[...] = jnp.full_like(m_s, NEG_INF)
-    l_s[...] = jnp.zeros_like(l_s)
-
-    def dma(slot, t):
-        tile = kv_idx_ref[i, t]
-        ck = pltpu.make_async_copy(
-            kc_ref.at[h_idx, pl.ds(tile * block_k, block_k)],
-            kbuf.at[slot], sems.at[slot, 0])
-        cv = pltpu.make_async_copy(
-            vc_ref.at[h_idx, pl.ds(tile * block_k, block_k)],
-            vbuf.at[slot], sems.at[slot, 1])
-        return ck, cv
-
-    @pl.when(n_tiles > 0)
-    def _prologue():
-        ck, cv = dma(0, 0)
-        ck.start()
-        cv.start()
-
-    q = q_ref[0]
-    qs = (q.astype(jnp.float32) * scale_log2).astype(q.dtype)
-    rows = i * block_q + jax.lax.broadcasted_iota(
-        jnp.int32, (block_q, block_k), 0)
-    cols_i = jax.lax.broadcasted_iota(jnp.int32, (block_q, block_k), 1)
-    shift = seqlen_k - seqlen_q
-
-    def tile_compute(t, slot):
-        # static slots only: dynamic semaphore indexing is a measured ~4s
-        # per wait runtime slow path (see flash_decode.py)
-        ck, cv = dma(slot, t)
-        ck.wait()
-        cv.wait()
-        k = kbuf[slot]
-        v = vbuf[slot]
-
-        tile = kv_idx_ref[i, t]
-        cols = tile * block_k + cols_i
-        valid = cols < seqlen_k
-        if causal:
-            valid = jnp.logical_and(valid, cols <= rows + shift)
-        vmask = (jax.lax.broadcasted_iota(jnp.int32, (block_k, 1), 0)
-                 + tile * block_k) < seqlen_k
-        v = jnp.where(vmask, v, 0)
-
-        s2 = jax.lax.dot_general(
-            qs, k, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        s2 = jnp.where(valid, s2, NEG_INF)
-
-        m_prev = m_s[...]
-        l_prev = l_s[...]
-        row_max = jnp.max(s2, axis=-1, keepdims=True)
-        m_new = jnp.maximum(m_prev, jnp.broadcast_to(row_max, m_prev.shape))
-        m_safe = jnp.where(m_new == NEG_INF, 0.0, m_new)
-        p = jnp.exp2(s2 - m_safe[:, :1])
-        corr = jnp.exp2(m_prev - m_safe)
-        l_s[...] = l_prev * corr + jnp.broadcast_to(
-            jnp.sum(p, axis=-1, keepdims=True), l_prev.shape)
-        m_s[...] = m_new
-        pv = jax.lax.dot_general(
-            p.astype(v.dtype), v, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        acc[...] = acc[...] * corr[:, :1] + pv
-
-    def pair_body(p2, _):
-        t0 = 2 * p2
-
-        @pl.when(t0 + 1 < n_tiles)
-        def _pf1():
-            ck, cv = dma(1, t0 + 1)
-            ck.start()
-            cv.start()
-
-        tile_compute(t0, 0)
-
-        @pl.when(t0 + 2 < n_tiles)
-        def _pf0():
-            ck, cv = dma(0, t0 + 2)
-            ck.start()
-            cv.start()
-
-        @pl.when(t0 + 1 < n_tiles)
-        def _second():
-            tile_compute(t0 + 1, 1)
-
-        return 0
-
-    jax.lax.fori_loop(0, (n_tiles + 1) // 2, pair_body, 0)
-
-    m = m_s[:, :1]
-    l = l_s[:, :1]
-    inv_l = jnp.where(l == 0.0, 0.0, 1.0 / l)
-    out_ref[0] = (acc[...] * inv_l).astype(out_dtype)
-    lse_ref[0, 0] = (m * LN2 + jnp.log(l))[:, 0]
+def _element_mask(kv_num, kv_indices, sq, sk, block_q, block_k):
+    """(sq, sk) bool: True inside the tiles listed for each q tile."""
+    nq, nk = kv_indices.shape
+    listed = jnp.arange(nk)[None, :] < kv_num[:, None]
+    tiles = jnp.zeros((nq, nk), bool).at[
+        jnp.arange(nq)[:, None], kv_indices].max(listed)
+    rows = jnp.arange(sq)[:, None] // block_q
+    cols = jnp.arange(sk)[None, :] // block_k
+    return tiles[rows, cols]
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("softmax_scale", "causal", "block_q", "block_k",
-                     "interpret"),
-)
+@functools.partial(jax.jit, static_argnames=("softmax_scale", "causal",
+                                             "block_q", "block_k"))
 def flash_attention_blocksparse_fwd(
-    q,  # (h, sq, d) — single batch entry (vmap for batch)
+    q,  # (h, sq, d), one batch entry (vmap for batch)
     k,  # (h, sk, d)
     v,  # (h, sk, dv)
     kv_num,      # (nq,) int32
@@ -169,326 +56,23 @@ def flash_attention_blocksparse_fwd(
     causal: bool = False,
     block_q: int = 512,
     block_k: int = 512,
-    interpret: bool = False,
 ):
-    """Returns (out (h, sq, dv), lse (h, sq))."""
-    h, sq, d = q.shape
-    _, sk, dv = v.shape
-    if softmax_scale is None:
-        softmax_scale = 1.0 / math.sqrt(d)
-    bq = min(block_q, _next_pow2(sq))
-    bk = block_k
-    while bk > 128 and sk % bk != 0:
-        bk //= 2
-    assert sk % bk == 0, (sk, bk)
-    nq = pl.cdiv(sq, bq)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(h, nq),
-        in_specs=[
-            pl.BlockSpec((1, bq, d), lambda h_, i, *_: (h_, i, 0)),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, bq, dv), lambda h_, i, *_: (h_, i, 0)),
-            pl.BlockSpec((1, 1, bq), lambda h_, i, *_: (h_, 0, i)),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, bk, d), k.dtype),
-            pltpu.VMEM((2, bk, dv), v.dtype),
-            pltpu.SemaphoreType.DMA((2, 2)),
-            pltpu.VMEM((bq, dv), jnp.float32),
-            pltpu.VMEM((bq, 128), jnp.float32),
-            pltpu.VMEM((bq, 128), jnp.float32),
-        ],
-    )
-    out, lse = pl.pallas_call(
-        functools.partial(
-            _bs_kernel, block_q=bq, block_k=bk, seqlen_q=sq, seqlen_k=sk,
-            causal=causal, scale_log2=softmax_scale * LOG2E, out_dtype=q.dtype,
-        ),
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((h, sq, dv), q.dtype),
-            jax.ShapeDtypeStruct((h, 1, sq), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel"),
-        ),
-        interpret=interpret,
-    )(kv_num, kv_indices, q, k, v)
-    return out, lse[:, 0]
+    """Returns (out (h, sq, dv), lse (h, sq)); differentiable in q/k/v."""
+    sq, sk = q.shape[1], k.shape[1]
+    keep = _element_mask(kv_num, kv_indices, sq, sk, block_q, block_k)
+    to_bshd = lambda x: jnp.swapaxes(x, 0, 1)[None]
+    out, lse = backend.attention(
+        to_bshd(q), to_bshd(k), to_bshd(v),
+        softmax_scale=softmax_scale or 1.0 / math.sqrt(q.shape[-1]),
+        causal=causal, mask_mod=lambda b, h, rows, cols: keep[rows, cols])
+    return jnp.swapaxes(out[0], 0, 1), lse[0]
 
 
-def _bs_bwd_kernel(
-    kv_num_ref, kv_idx_ref,   # scalar prefetch: (nq,), (nq, nk)
-    *refs,
-    block_q, block_k, seqlen_q, seqlen_k, num_q_blocks, causal, scale,
-    dq_dtype,
-):
-    (q_ref, do_ref, lse_ref, delta_ref, kc_ref, vc_ref,
-     dq_ref, dk_hbm, dv_hbm,
-     kbuf, vbuf, sems, dq_acc, dk_all, dv_all, copy_sems) = refs
-
-    h_idx = pl.program_id(0)
-    i = pl.program_id(1)
-    n_tiles = kv_num_ref[i]
-
-    @pl.when(i == 0)
-    def _seg_init():
-        dk_all[...] = jnp.zeros_like(dk_all)
-        dv_all[...] = jnp.zeros_like(dv_all)
-
-    dq_acc[...] = jnp.zeros_like(dq_acc)
-
-    def dma(slot, t):
-        tile = kv_idx_ref[i, t]
-        ck = pltpu.make_async_copy(
-            kc_ref.at[h_idx, pl.ds(tile * block_k, block_k)],
-            kbuf.at[slot], sems.at[slot, 0])
-        cv = pltpu.make_async_copy(
-            vc_ref.at[h_idx, pl.ds(tile * block_k, block_k)],
-            vbuf.at[slot], sems.at[slot, 1])
-        return ck, cv
-
-    @pl.when(n_tiles > 0)
-    def _prologue():
-        ck, cv = dma(0, 0)
-        ck.start()
-        cv.start()
-
-    q = q_ref[0]      # (bq, d)
-    do = do_ref[0]    # (bq, dv)
-    lse2 = lse_ref[0, 0].reshape(block_q, 1) * LOG2E
-    delta = delta_ref[0, 0].reshape(block_q, 1)
-    lse2_safe = jnp.where(lse2 == NEG_INF, 0.0, lse2)
-    rows = i * block_q + jax.lax.broadcasted_iota(
-        jnp.int32, (block_q, 1), 0)
-    cols_i = jax.lax.broadcasted_iota(jnp.int32, (1, block_k), 1)
-    shift = seqlen_k - seqlen_q
-    row_pad = seqlen_q % block_q != 0
-    if row_pad:
-        q = jnp.where(rows < seqlen_q, q, 0)
-        do = jnp.where(rows < seqlen_q, do, 0)
-
-    def tile_compute(t, slot):
-        ck, cv = dma(slot, t)
-        ck.wait()
-        cv.wait()
-        k = kbuf[slot]
-        v = vbuf[slot]
-
-        tile = kv_idx_ref[i, t]
-        cols = tile * block_k + cols_i
-        valid = cols < seqlen_k
-        if causal:
-            valid = jnp.logical_and(valid, cols <= rows + shift)
-
-        s2 = jax.lax.dot_general(
-            q, k, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        ) * (scale * LOG2E)
-        s2 = jnp.where(valid, s2, NEG_INF)
-        p = jnp.exp2(s2 - lse2_safe)
-        if row_pad:
-            p = jnp.where(rows < seqlen_q, p, 0)
-        dp = jax.lax.dot_general(
-            do, v, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        ds = p * (dp - delta)
-        p_lo = p.astype(do.dtype)
-        ds_lo = ds.astype(q.dtype)
-
-        dq_acc[...] += jax.lax.dot_general(
-            ds_lo, k, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        # d-major accumulators (lane axis = 128-aligned seq axis); the
-        # write offset is the DYNAMIC listed-tile position — deterministic
-        # because the per-row tile order is the fixed kv_indices order
-        # (reference cute/block_sparsity.py:80 compute_dq_write_order's
-        # fixed-order contract, achieved structurally here).
-        off = tile * block_k
-        dv_all[:, pl.ds(off, block_k)] += jax.lax.dot_general(
-            do, p_lo, (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        dk_all[:, pl.ds(off, block_k)] += jax.lax.dot_general(
-            q, ds_lo, (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-
-    def pair_body(p2, _):
-        t0 = 2 * p2
-
-        @pl.when(t0 + 1 < n_tiles)
-        def _pf1():
-            ck, cv = dma(1, t0 + 1)
-            ck.start()
-            cv.start()
-
-        tile_compute(t0, 0)
-
-        @pl.when(t0 + 2 < n_tiles)
-        def _pf0():
-            ck, cv = dma(0, t0 + 2)
-            ck.start()
-            cv.start()
-
-        @pl.when(t0 + 1 < n_tiles)
-        def _second():
-            tile_compute(t0 + 1, 1)
-
-        return 0
-
-    jax.lax.fori_loop(0, (n_tiles + 1) // 2, pair_body, 0)
-
-    dq_ref[0] = (dq_acc[...] * scale).astype(dq_dtype)
-
-    @pl.when(i == num_q_blocks - 1)
-    def _seg_flush():
-        dk_all[...] = dk_all[...] * scale
-        cp_k = pltpu.make_async_copy(dk_all, dk_hbm.at[h_idx], copy_sems.at[0])
-        cp_v = pltpu.make_async_copy(dv_all, dv_hbm.at[h_idx], copy_sems.at[1])
-        cp_k.start()
-        cp_v.start()
-        cp_k.wait()
-        cp_v.wait()
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("softmax_scale", "causal", "block_q", "block_k",
-                     "interpret"),
-)
-def flash_attention_blocksparse_bwd(
-    do,   # (h, sq, dv)
-    q,    # (h, sq, d)
-    k,    # (h, sk, d)
-    v,    # (h, sk, dv)
-    out,  # (h, sq, dv)
-    lse,  # (h, sq)
-    kv_num,      # (nq,) int32
-    kv_indices,  # (nq, nk) int32
-    softmax_scale: Optional[float] = None,
-    causal: bool = False,
-    block_q: int = 512,
-    block_k: int = 512,
-    interpret: bool = False,
-):
-    """Deterministic block-sparse backward (reference
-    cute/block_sparsity.py:80 ``compute_dq_write_order`` +
-    flash_bwd sparse kernels). Returns (dq, dk, dv) fp32, (h, s, d) layout.
-
-    Same full-KV d-major VMEM accumulator design as the fused dense
-    backward (flash_bwd_fused.py): no atomics, fixed iteration order, so
-    results are bitwise deterministic; unlisted tiles contribute exactly 0.
-    """
-    h, sq, d = q.shape
-    _, sk, dv = v.shape
-    if softmax_scale is None:
-        softmax_scale = 1.0 / math.sqrt(d)
-    bq = min(block_q, _next_pow2(sq))
-    bk = block_k
-    while bk > 128 and sk % bk != 0:
-        bk //= 2
-    assert sk % bk == 0, (sk, bk)
-    assert sk % 128 == 0 and d % 8 == 0 and dv % 8 == 0, (
-        "blocksparse bwd needs 128-aligned seqlen_k and 8-aligned head dims")
-    nq = pl.cdiv(sq, bq)
-
-    delta = jnp.sum(do.astype(jnp.float32) * out.astype(jnp.float32),
-                    axis=-1)  # (h, sq)
-    lse = lse.astype(jnp.float32)[:, None, :]
-    delta = delta[:, None, :]
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(h, nq),
-        in_specs=[
-            pl.BlockSpec((1, bq, d), lambda h_, i, *_: (h_, i, 0)),
-            pl.BlockSpec((1, bq, dv), lambda h_, i, *_: (h_, i, 0)),
-            pl.BlockSpec((1, 1, bq), lambda h_, i, *_: (h_, 0, i)),
-            pl.BlockSpec((1, 1, bq), lambda h_, i, *_: (h_, 0, i)),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, bq, d), lambda h_, i, *_: (h_, i, 0)),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, bk, d), k.dtype),
-            pltpu.VMEM((2, bk, dv), v.dtype),
-            pltpu.SemaphoreType.DMA((2, 2)),
-            pltpu.VMEM((bq, d), jnp.float32),
-            pltpu.VMEM((d, sk), jnp.float32),
-            pltpu.VMEM((dv, sk), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-    dq, dk_t, dv_t = pl.pallas_call(
-        functools.partial(
-            _bs_bwd_kernel, block_q=bq, block_k=bk, seqlen_q=sq,
-            seqlen_k=sk, num_q_blocks=nq, causal=causal,
-            scale=softmax_scale, dq_dtype=jnp.float32,
-        ),
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((h, sq, d), jnp.float32),
-            jax.ShapeDtypeStruct((h, d, sk), jnp.float32),
-            jax.ShapeDtypeStruct((h, dv, sk), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        interpret=interpret,
-    )(kv_num, kv_indices, q, do, lse, delta, k, v)
-    return dq, jnp.swapaxes(dk_t, -1, -2), jnp.swapaxes(dv_t, -1, -2)
-
-
-@functools.partial(
-    jax.custom_vjp, nondiff_argnums=(5, 6, 7, 8, 9)
-)
 def flash_attention_blocksparse(q, k, v, kv_num, kv_indices,
                                 softmax_scale=None, causal=False,
-                                block_q=512, block_k=512, interpret=False):
+                                block_q=512, block_k=512):
     """Differentiable block-sparse attention (out only; lse via the _fwd
     function). Layouts (h, s, d); vmap over batch."""
-    out, _ = flash_attention_blocksparse_fwd(
+    return flash_attention_blocksparse_fwd(
         q, k, v, kv_num, kv_indices, softmax_scale=softmax_scale,
-        causal=causal, block_q=block_q, block_k=block_k, interpret=interpret)
-    return out
-
-
-def _bs_vjp_fwd(q, k, v, kv_num, kv_indices, softmax_scale, causal,
-                block_q, block_k, interpret):
-    out, lse = flash_attention_blocksparse_fwd(
-        q, k, v, kv_num, kv_indices, softmax_scale=softmax_scale,
-        causal=causal, block_q=block_q, block_k=block_k, interpret=interpret)
-    return out, (q, k, v, kv_num, kv_indices, out, lse)
-
-
-def _bs_vjp_bwd(softmax_scale, causal, block_q, block_k, interpret,
-                residuals, g):
-    q, k, v, kv_num, kv_indices, out, lse = residuals
-    dq, dk, dv = flash_attention_blocksparse_bwd(
-        g, q, k, v, out, lse, kv_num, kv_indices,
-        softmax_scale=softmax_scale, causal=causal, block_q=block_q,
-        block_k=block_k, interpret=interpret)
-    return (dq.astype(q.dtype), dk.astype(k.dtype), dv.astype(v.dtype),
-            None, None)
-
-
-flash_attention_blocksparse.defvjp(_bs_vjp_fwd, _bs_vjp_bwd)
-
-
-def _next_pow2(n: int) -> int:
-    p = 1
-    while p < n:
-        p *= 2
-    return p
+        causal=causal, block_q=block_q, block_k=block_k)[0]

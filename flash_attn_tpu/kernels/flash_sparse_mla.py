@@ -13,7 +13,7 @@ Semantics (matching the reference):
   - MQA: one KV head; all ``h`` query heads of a row share the row's top-k
     index set (the reference asserts ``nheads_kv == 1 and
     qhead_per_kvhead == 128`` — that sharing is what makes the per-row
-    score computation an MXU-shaped (h, d) x (d, topk) matmul).
+    score computation an (h, d) x (d, topk) matmul).
   - ``qv`` extra-query term: scores = (q . k^T + qv . v^T) * scale — the
     absorbed-MLA factorization (reference requires qv for sparse KV,
     interface.py:959).
@@ -23,20 +23,13 @@ Semantics (matching the reference):
   - duplicate indices in a row are legal and contribute multiply (same as
     the gather-then-attend reference).
 
-TPU-native design — NOT a port of the CUDA gather pipeline:
-  The per-row gather is expressed as an XLA ``take_along_axis`` over a
-  CHUNK of query rows inside a ``lax.map`` (sequential over chunks, so one
-  chunk's gathered KV is live at a time), followed by dense batched
-  matmuls over (chunk, h, topk) — XLA lowers the row gather to the TPU
-  dynamic-gather path and overlaps it with the MXU work of the previous
-  chunk. A hand-rolled Pallas gather would issue ~1 KiB row DMAs, which
-  the paged-decode measurements put at <20% of HBM bandwidth
-  (DESIGN.md "paged"), i.e. strictly worse than the native gather.
+Design: plain XLA, not a port of the CUDA gather pipeline. The per-row
+gather is an XLA ``take_along_axis`` over a CHUNK of query rows inside a
+``lax.map`` (sequential over chunks, so one chunk's gathered KV is live at
+a time), followed by dense batched matmuls over (chunk, h, topk).
 
 Backward: per-chunk recompute (same gather), dq/dqv direct, dK/dV via
-XLA scatter-add at the row indices — deterministic on TPU by
-construction (no atomics exist; the reference's CUDA path documents
-nondeterministic dK accumulation as a known limitation).
+XLA scatter-add at the row indices.
 """
 
 import functools

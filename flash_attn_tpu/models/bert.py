@@ -14,8 +14,8 @@ Heads (reference flash_attn/models/bert.py):
    states at the masked positions FIRST and run the (hidden->vocab) head
    only there — vocab-size matmul on ~15% of tokens. (The reference's
    further ``last_layer_subset`` variant restricts the last attention
-   layer's queries too; on TPU the gather already removes the vocab matmul
-   that dominates, and the varlen kernel handles the rest.)
+   layer's queries too; here the gather already removes the vocab matmul
+   that dominates, and the varlen path handles the rest.)
 
 HF interop: ``bert_config_from_hf`` + ``remap_state_dict_hf_bert`` load
 HuggingFace ``BertForMaskedLM``/``BertForPreTraining`` checkpoints
@@ -27,11 +27,11 @@ import dataclasses
 import re
 from typing import Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from flash_attn_tpu.modules import core as nn
 from flash_attn_tpu import flash_attn_func, flash_attn_varlen_func
 from flash_attn_tpu.ops.norm import layer_norm
 from flash_attn_tpu.utils.padding import pad_input, unpad_input
@@ -59,7 +59,6 @@ class BertConfig:
 class _BertSelfAttention(nn.Module):
     config: BertConfig
 
-    @nn.compact
     def __call__(self, x, attention_mask=None, cu_seqlens=None,
                  max_seqlen=None):
         cfg = self.config
@@ -88,23 +87,22 @@ class _BertLayer(nn.Module):
     """Post-norm residual block (BERT style)."""
     config: BertConfig
 
-    @nn.compact
     def __call__(self, x, attention_mask=None, cu_seqlens=None,
                  max_seqlen=None):
         cfg = self.config
         attn = _BertSelfAttention(cfg, name="attention")(
             x, attention_mask, cu_seqlens, max_seqlen)
-        w1 = self.param("norm1_weight", nn.initializers.ones,
+        w1 = self.param("norm1_weight", jax.nn.initializers.ones,
                         (cfg.hidden_size,), jnp.float32)
-        b1 = self.param("norm1_bias", nn.initializers.zeros,
+        b1 = self.param("norm1_bias", jax.nn.initializers.zeros,
                         (cfg.hidden_size,), jnp.float32)
         x = layer_norm(x + attn, w1, b1, cfg.layer_norm_eps)
         y = nn.Dense(cfg.intermediate_size, dtype=cfg.dtype, name="fc1")(x)
         y = jax.nn.gelu(y, approximate=False)
         y = nn.Dense(cfg.hidden_size, dtype=cfg.dtype, name="fc2")(y)
-        w2 = self.param("norm2_weight", nn.initializers.ones,
+        w2 = self.param("norm2_weight", jax.nn.initializers.ones,
                         (cfg.hidden_size,), jnp.float32)
-        b2 = self.param("norm2_bias", nn.initializers.zeros,
+        b2 = self.param("norm2_bias", jax.nn.initializers.zeros,
                         (cfg.hidden_size,), jnp.float32)
         return layer_norm(x + y, w2, b2, cfg.layer_norm_eps)
 
@@ -113,7 +111,6 @@ class BertModel(nn.Module):
     config: BertConfig
     with_pooler: bool = False
 
-    @nn.compact
     def __call__(self, input_ids, attention_mask=None, token_type_ids=None):
         cfg = self.config
         b, s = input_ids.shape
@@ -127,9 +124,9 @@ class BertModel(nn.Module):
         x = x + nn.Embed(cfg.type_vocab_size, cfg.hidden_size,
                          dtype=cfg.dtype, name="token_type_embeddings")(
             token_type_ids)
-        w = self.param("emb_norm_weight", nn.initializers.ones,
+        w = self.param("emb_norm_weight", jax.nn.initializers.ones,
                        (cfg.hidden_size,), jnp.float32)
-        bb = self.param("emb_norm_bias", nn.initializers.zeros,
+        bb = self.param("emb_norm_bias", jax.nn.initializers.zeros,
                         (cfg.hidden_size,), jnp.float32)
         x = layer_norm(x, w, bb, cfg.layer_norm_eps)
 
@@ -163,14 +160,13 @@ class _MLMHead(nn.Module):
     """transform (dense+gelu+LN) -> vocab decoder."""
     config: BertConfig
 
-    @nn.compact
     def __call__(self, x):
         cfg = self.config
         x = nn.Dense(cfg.hidden_size, dtype=cfg.dtype, name="transform")(x)
         x = jax.nn.gelu(x, approximate=False)
-        w = self.param("transform_norm_weight", nn.initializers.ones,
+        w = self.param("transform_norm_weight", jax.nn.initializers.ones,
                        (cfg.hidden_size,), jnp.float32)
-        b = self.param("transform_norm_bias", nn.initializers.zeros,
+        b = self.param("transform_norm_bias", jax.nn.initializers.zeros,
                        (cfg.hidden_size,), jnp.float32)
         x = layer_norm(x, w, b, cfg.layer_norm_eps)
         return nn.Dense(cfg.vocab_size, dtype=cfg.dtype, name="decoder")(
@@ -180,7 +176,6 @@ class _MLMHead(nn.Module):
 class BertForMaskedLM(nn.Module):
     config: BertConfig
 
-    @nn.compact
     def __call__(self, input_ids, attention_mask=None, token_type_ids=None,
                  masked_positions=None):
         """masked_positions (b, m) int32: dense_seq_output fast path — the
@@ -201,7 +196,6 @@ class BertForPreTraining(nn.Module):
     flash_attn/models/bert.py:545 ``BertForPreTraining``)."""
     config: BertConfig
 
-    @nn.compact
     def __call__(self, input_ids, attention_mask=None, token_type_ids=None,
                  masked_positions=None):
         cfg = self.config
@@ -238,7 +232,7 @@ def bert_config_from_hf(hf_config, dtype=jnp.float32,
 
 
 def remap_state_dict_hf_bert(state_dict, cfg: BertConfig):
-    """HF BertForMaskedLM / BertForPreTraining state_dict -> flax params.
+    """HF BertForMaskedLM / BertForPreTraining state_dict -> params.
 
     Fuses query/key/value into Wqkv and transposes torch Linear weights
     (reference remap_state_dict, flash_attn/models/bert.py:625)."""

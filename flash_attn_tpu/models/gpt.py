@@ -1,4 +1,4 @@
-"""GPT-family reference model (flax.linen).
+"""GPT-family reference model (modules.core, plain JAX).
 
 Parity surface for the reference model factory
 (flash_attn/models/gpt.py:409 ``GPTModel``, :577 ``GPTLMHeadModel``,
@@ -15,10 +15,10 @@ the parameter pytree; no model-code changes needed.
 import dataclasses
 from typing import Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from flash_attn_tpu.modules import core as nn
 from flash_attn_tpu.modules.block import Block, ParallelBlock
 from flash_attn_tpu.modules.mha import MHA
 from flash_attn_tpu.modules.mlp import GatedMlp, Mlp
@@ -87,11 +87,10 @@ class GPTConfig:
     # context_parallel (ring attention over a dedicated ``seq`` axis):
     # here attention still sees the full sequence on every TP rank.
     sequence_parallel: bool = False
-    # Per-layer activation rematerialization (jax.checkpoint / flax
-    # nn.remat) in train mode: trades ~1/3 extra fwd FLOPs for O(layers)
-    # less activation memory. The reference's headline 72%-MFU number is
-    # WITHOUT activation checkpointing on 80 GB parts (README.md:527-530);
-    # a 16 GB v5e needs it for ~1B-param training at seq 2k+.
+    # Per-layer activation rematerialization (jax.checkpoint) in train
+    # mode: trades ~1/3 extra fwd FLOPs for O(layers) less activation
+    # memory. The reference's headline 72%-MFU number is WITHOUT activation
+    # checkpointing on 80 GB parts (README.md:527-530).
     remat: bool = False
     # 'full' recomputes everything; 'dots' saves matmul outputs with no
     # batch dims (jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims
@@ -204,10 +203,10 @@ class GPTModel(nn.Module):
                 ) for _ in range(cfg.n_layer)
             ]
         self.ln_f_weight = self.param(
-            "ln_f_weight", nn.initializers.ones, (cfg.n_embd,), jnp.float32)
+            "ln_f_weight", jax.nn.initializers.ones, (cfg.n_embd,), jnp.float32)
         if not cfg.use_rms_norm:
             self.ln_f_bias = self.param(
-                "ln_f_bias", nn.initializers.zeros, (cfg.n_embd,), jnp.float32)
+                "ln_f_bias", jax.nn.initializers.zeros, (cfg.n_embd,), jnp.float32)
 
     def __call__(self, input_ids, position_ids=None, mode: str = "train",
                  deterministic: bool = True, **mixer_kwargs):
@@ -216,19 +215,24 @@ class GPTModel(nn.Module):
         if cfg.mup_embeddings_multiplier != 1.0:
             hidden = hidden * cfg.mup_embeddings_multiplier
         if cfg.embd_dropout > 0 and not deterministic:
-            hidden = nn.Dropout(cfg.embd_dropout, deterministic=False)(
-                hidden, rng=self.make_rng("dropout"))
+            hidden = nn.dropout(hidden, cfg.embd_dropout,
+                                self.make_rng("dropout"))
         residual = None
 
         def block_fn(block, h, r):
             return block(h, r, deterministic=deterministic, mode=mode,
                          **mixer_kwargs)
 
-        if cfg.remat and mode == "train":
+        if cfg.remat and mode == "train" and not self.is_initializing():
             policy = (jax.checkpoint_policies
                       .checkpoint_dots_with_no_batch_dims
                       if cfg.remat_policy == "dots" else None)
-            block_fn = nn.remat(block_fn, policy=policy)
+            plain_block_fn = block_fn
+
+            def block_fn(block, h, r):
+                return jax.checkpoint(
+                    lambda h, r: plain_block_fn(block, h, r),
+                    policy=policy)(h, r)
         if cfg.sequence_parallel and hidden.ndim == 3:
             # Megatron SP: pin the residual stream to a sequence sharding
             # over the TP axis between blocks (see GPTConfig docstring).
@@ -271,9 +275,8 @@ class _NormHead(nn.Module):
     vocab_size: int
     dtype: jnp.dtype
 
-    @nn.compact
     def __call__(self, x):
-        kernel = self.param("kernel", nn.initializers.lecun_normal(),
+        kernel = self.param("kernel", jax.nn.initializers.lecun_normal(),
                             (x.shape[-1], self.vocab_size), jnp.float32)
         norm = jnp.maximum(jnp.linalg.norm(kernel, axis=0, keepdims=True),
                            1e-12)

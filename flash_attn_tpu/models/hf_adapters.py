@@ -317,7 +317,7 @@ def bigcode_config_to_gpt_config(hf, dtype=jnp.float32,
 
 
 def remap_state_dict_hf_bigcode(sd: Dict[str, Any], cfg: GPTConfig):
-    """HF GPTBigCode checkpoint -> flax params. c_attn is a torch Linear
+    """HF GPTBigCode checkpoint -> params. c_attn is a torch Linear
     whose output rows are already packed [q (n_embd), k (head_dim),
     v (head_dim)] — exactly our MQA Wqkv layout, so the remap is a plain
     transpose (no reference-style k/v tiling)."""
@@ -381,8 +381,8 @@ def btlm_config_to_gpt_config(hf, dtype=jnp.float32,
 
 
 def remap_state_dict_hf_btlm(sd: Dict[str, Any], cfg: GPTConfig):
-    """HF BTLM checkpoint -> flax params. BTLM stores Conv1D weights
-    (in, out) — already flax kernel orientation, no transpose. The gated
+    """HF BTLM checkpoint -> params. BTLM stores Conv1D weights
+    (in, out) — already kernel orientation, no transpose. The gated
     MLP's activated half is ``c_fc2`` (reference models/btlm.py:45 places it
     in the gate slot); our GatedMlp is gate-first, so fc1 = [c_fc2, c_fc].
     ALiBi slopes (relative_pe.slopes) are recomputed, not stored."""
@@ -451,7 +451,7 @@ def baichuan_config_to_gpt_config(hf, dtype=jnp.float32,
 
 
 def remap_state_dict_hf_baichuan(sd: Dict[str, Any], cfg: GPTConfig):
-    """HF Baichuan checkpoint -> flax params. W_pack rows are [q, k, v] —
+    """HF Baichuan checkpoint -> params. W_pack rows are [q, k, v] —
     our packed layout, so just transpose; gated MLP is gate-first
     [gate_proj, up_proj] like our llama remap."""
     params: Dict[str, Any] = {"transformer": {}}

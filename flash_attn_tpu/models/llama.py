@@ -3,7 +3,7 @@
 Parity surface for the reference llama adapter (flash_attn/models/llama.py:
 ``llama_config_to_gpt2_config``, ``remap_state_dict_hf_llama``) — translate
 a HF ``LlamaConfig`` into our ``GPTConfig`` and map HF weights onto the
-flax param tree of GPTLMHeadModel.
+param tree of GPTLMHeadModel.
 """
 
 from typing import Any, Dict
@@ -43,13 +43,13 @@ def llama_config_to_gpt_config(hf_cfg, dtype=jnp.float32,
 
 
 def _t(w) -> np.ndarray:
-    """HF torch Linear weight (out, in) -> flax kernel (in, out)."""
+    """HF torch Linear weight (out, in) -> kernel (in, out)."""
     return np.ascontiguousarray(np.asarray(w, dtype=np.float32).T)
 
 
 def remap_state_dict_hf_llama(state_dict: Dict[str, Any],
                               cfg: GPTConfig) -> Dict[str, Any]:
-    """HF llama state_dict (torch tensors or arrays) -> flax params pytree
+    """HF llama state_dict (torch tensors or arrays) -> params pytree
     for GPTLMHeadModel."""
     sd = {k: np.asarray(v.float().numpy() if hasattr(v, "numpy") else v,
                         dtype=np.float32)

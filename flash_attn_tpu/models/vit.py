@@ -5,17 +5,17 @@ patch embed + cls token + pre-norm blocks with flash attention + head,
 token/avg global pooling (reference ``global_pool``), and HuggingFace
 checkpoint interop (``vit_config_from_hf`` + ``remap_state_dict_hf_vit``
 load ``transformers`` ViTForImageClassification weights — query/key/value
-fused into Wqkv, torch Conv/Linear weights transposed to flax layouts).
+fused into Wqkv, torch Conv/Linear weights transposed to this package's layouts).
 """
 
 import dataclasses
 from typing import Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from flash_attn_tpu.modules import core as nn
 from flash_attn_tpu import flash_attn_func
 from flash_attn_tpu.ops.norm import layer_norm
 
@@ -42,15 +42,14 @@ class ViTConfig:
 class _ViTBlock(nn.Module):
     config: ViTConfig
 
-    @nn.compact
     def __call__(self, x):
         cfg = self.config
         h = cfg.num_heads
         d = cfg.embed_dim // h
         b, s, _ = x.shape
-        w1 = self.param("norm1_weight", nn.initializers.ones,
+        w1 = self.param("norm1_weight", jax.nn.initializers.ones,
                         (cfg.embed_dim,), jnp.float32)
-        b1 = self.param("norm1_bias", nn.initializers.zeros,
+        b1 = self.param("norm1_bias", jax.nn.initializers.zeros,
                         (cfg.embed_dim,), jnp.float32)
         y = layer_norm(x, w1, b1, cfg.layer_norm_eps)
         qkv = nn.Dense(3 * cfg.embed_dim, dtype=cfg.dtype, name="Wqkv")(y)
@@ -60,9 +59,9 @@ class _ViTBlock(nn.Module):
         attn = nn.Dense(cfg.embed_dim, dtype=cfg.dtype, name="out_proj")(
             attn.reshape(b, s, h * d))
         x = x + attn
-        w2 = self.param("norm2_weight", nn.initializers.ones,
+        w2 = self.param("norm2_weight", jax.nn.initializers.ones,
                         (cfg.embed_dim,), jnp.float32)
-        b2 = self.param("norm2_bias", nn.initializers.zeros,
+        b2 = self.param("norm2_bias", jax.nn.initializers.zeros,
                         (cfg.embed_dim,), jnp.float32)
         y = layer_norm(x, w2, b2, cfg.layer_norm_eps)
         y = nn.Dense(int(cfg.embed_dim * cfg.mlp_ratio), dtype=cfg.dtype,
@@ -75,7 +74,6 @@ class _ViTBlock(nn.Module):
 class VisionTransformer(nn.Module):
     config: ViTConfig
 
-    @nn.compact
     def __call__(self, images):  # (b, H, W, C)
         cfg = self.config
         b = images.shape[0]
@@ -85,21 +83,21 @@ class VisionTransformer(nn.Module):
         x = x.reshape(b, -1, cfg.embed_dim)
         n = x.shape[1]
         if cfg.use_cls_token:
-            cls = self.param("cls_token", nn.initializers.zeros,
+            cls = self.param("cls_token", jax.nn.initializers.zeros,
                              (1, 1, cfg.embed_dim), jnp.float32)
             x = jnp.concatenate(
                 [jnp.broadcast_to(cls, (b, 1, cfg.embed_dim)).astype(x.dtype),
                  x], axis=1)
             n += 1
         pos = self.param("pos_embed",
-                         nn.initializers.normal(0.02),
+                         jax.nn.initializers.normal(0.02),
                          (1, n, cfg.embed_dim), jnp.float32)
         x = x + pos.astype(x.dtype)
         for i in range(cfg.depth):
             x = _ViTBlock(cfg, name=f"blocks_{i}")(x)
-        w = self.param("norm_weight", nn.initializers.ones,
+        w = self.param("norm_weight", jax.nn.initializers.ones,
                        (cfg.embed_dim,), jnp.float32)
-        bb = self.param("norm_bias", nn.initializers.zeros,
+        bb = self.param("norm_bias", jax.nn.initializers.zeros,
                         (cfg.embed_dim,), jnp.float32)
         x = layer_norm(x, w, bb, cfg.layer_norm_eps)
         if cfg.global_pool == "token" and cfg.use_cls_token:
@@ -132,7 +130,7 @@ def vit_config_from_hf(hf_config, num_classes: int,
 
 
 def remap_state_dict_hf_vit(state_dict, cfg: ViTConfig):
-    """HF ViTForImageClassification state_dict -> flax params."""
+    """HF ViTForImageClassification state_dict -> params."""
     sd = {k: np.asarray(v.float().numpy() if hasattr(v, "float") else v)
           for k, v in state_dict.items()}
 
@@ -144,7 +142,7 @@ def remap_state_dict_hf_vit(state_dict, cfg: ViTConfig):
         "cls_token": jnp.asarray(sd["vit.embeddings.cls_token"]),
         "pos_embed": jnp.asarray(sd["vit.embeddings.position_embeddings"]),
         "patch_embed": {
-            # torch Conv (out, in, kh, kw) -> flax (kh, kw, in, out)
+            # torch Conv (out, in, kh, kw) -> (kh, kw, in, out)
             "kernel": jnp.asarray(
                 sd["vit.embeddings.patch_embeddings.projection.weight"]
                 .transpose(2, 3, 1, 0)),

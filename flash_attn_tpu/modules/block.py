@@ -4,10 +4,10 @@ dropout-add-norm."""
 
 from typing import Any, Callable, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from flash_attn_tpu.modules import core as nn
 from flash_attn_tpu.ops.norm import (
     dropout_add_layer_norm,
     dropout_add_rms_norm,
@@ -26,19 +26,18 @@ class Block(nn.Module):
     norm_epsilon: float = 1e-5
     dtype: jnp.dtype = jnp.bfloat16
 
-    @nn.compact
     def __call__(self, hidden_states, residual=None, deterministic=True,
                  **mixer_kwargs):
         norm_fn = dropout_add_rms_norm if self.use_rms_norm else dropout_add_layer_norm
-        w1 = self.param("norm1_weight", nn.initializers.ones,
+        w1 = self.param("norm1_weight", jax.nn.initializers.ones,
                         (hidden_states.shape[-1],), jnp.float32)
         b1 = (None if self.use_rms_norm else
-              self.param("norm1_bias", nn.initializers.zeros,
+              self.param("norm1_bias", jax.nn.initializers.zeros,
                          (hidden_states.shape[-1],), jnp.float32))
-        w2 = self.param("norm2_weight", nn.initializers.ones,
+        w2 = self.param("norm2_weight", jax.nn.initializers.ones,
                         (hidden_states.shape[-1],), jnp.float32)
         b2 = (None if self.use_rms_norm else
-              self.param("norm2_bias", nn.initializers.zeros,
+              self.param("norm2_bias", jax.nn.initializers.zeros,
                          (hidden_states.shape[-1],), jnp.float32))
         p1 = 0.0 if deterministic else self.resid_dropout1
         p2 = 0.0 if deterministic else self.resid_dropout2
@@ -83,14 +82,13 @@ class ParallelBlock(nn.Module):
     tied_norm: bool = True
     dtype: jnp.dtype = jnp.bfloat16
 
-    @nn.compact
     def __call__(self, hidden_states, residual=None, deterministic=True,
                  **mixer_kwargs):
         norm_fn = dropout_add_rms_norm if self.use_rms_norm else dropout_add_layer_norm
         dim = hidden_states.shape[-1]
-        w1 = self.param("norm_weight", nn.initializers.ones, (dim,), jnp.float32)
+        w1 = self.param("norm_weight", jax.nn.initializers.ones, (dim,), jnp.float32)
         b1 = (None if self.use_rms_norm else
-              self.param("norm_bias", nn.initializers.zeros, (dim,), jnp.float32))
+              self.param("norm_bias", jax.nn.initializers.zeros, (dim,), jnp.float32))
         p = 0.0 if deterministic else self.resid_dropout
         key = self.make_rng("dropout") if p > 0 else None
         normed, residual = norm_fn(
@@ -102,13 +100,13 @@ class ParallelBlock(nn.Module):
         else:
             # GPT-NeoX-style separate mlp norm over the same residual sum
             from flash_attn_tpu.ops.norm import layer_norm, rms_norm
-            w2 = self.param("norm2_weight", nn.initializers.ones,
+            w2 = self.param("norm2_weight", jax.nn.initializers.ones,
                             (dim,), jnp.float32)
             if self.use_rms_norm:
                 normed2 = rms_norm(residual.astype(self.dtype), w2,
                                    self.norm_epsilon)
             else:
-                b2 = self.param("norm2_bias", nn.initializers.zeros,
+                b2 = self.param("norm2_bias", jax.nn.initializers.zeros,
                                 (dim,), jnp.float32)
                 normed2 = layer_norm(residual.astype(self.dtype), w2, b2,
                                      self.norm_epsilon)

@@ -1,12 +1,13 @@
 """Embedding modules (reference flash_attn/modules/embedding.py:
-``GPT2Embeddings``, ``VocabParallelEmbedding``:114). Vocab parallelism on
-TPU = shard the embedding table's vocab axis on the mesh; XLA handles the
+``GPT2Embeddings``, ``VocabParallelEmbedding``:114). Vocab parallelism
+here = shard the embedding table's vocab axis on the mesh; XLA handles the
 masked-lookup + psum the reference writes manually."""
 
 from typing import Optional
 
-import flax.linen as nn
 import jax.numpy as jnp
+
+from flash_attn_tpu.modules import core as nn
 
 
 class GPT2Embeddings(nn.Module):
@@ -15,7 +16,6 @@ class GPT2Embeddings(nn.Module):
     max_position_embeddings: int = 0  # 0 -> no learned positions (rotary)
     dtype: jnp.dtype = jnp.bfloat16
 
-    @nn.compact
     def __call__(self, input_ids, position_ids=None):
         x = nn.Embed(self.vocab_size, self.embed_dim, dtype=self.dtype,
                      name="word_embeddings")(input_ids)

@@ -1,4 +1,4 @@
-"""Multi-head attention module (flax.linen).
+"""Multi-head attention module (modules.core, plain JAX).
 
 Parity surface for the reference MHA (flash_attn/modules/mha.py:373 ``MHA``;
 decode fast path ``_apply_rotary_update_kvcache_attention``:502). The
@@ -8,7 +8,7 @@ sharded PartitionSpecs on a mesh (see flash_attn_tpu/parallel) — XLA inserts
 the collectives the reference hand-writes with ColumnParallelLinear /
 RowParallelLinear.
 
-Decode: the KV cache lives in the flax "cache" collection in the TPU-native
+Decode: the KV cache lives in the "cache" collection in the native
 (batch, kv_heads, seqlen, head_dim) layout, updated functionally through
 ``flash_attn_with_kvcache`` (mutable=["cache"]).
 """
@@ -16,10 +16,10 @@ Decode: the KV cache lives in the flax "cache" collection in the TPU-native
 import math
 from typing import Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from flash_attn_tpu.modules import core as nn
 from flash_attn_tpu import flash_attn_func, flash_attn_varlen_func
 from flash_attn_tpu.cache.kvcache import flash_attn_with_kvcache
 from flash_attn_tpu.ops.rotary import apply_rotary_emb
@@ -128,7 +128,6 @@ class MHA(nn.Module):
             slopes += [extra ** (i + 1) for i in range(0, 2 * (h - closest), 2)]
         return jnp.asarray(slopes, jnp.float32)
 
-    @nn.compact
     def __call__(
         self,
         x,  # (b, s, embed) or packed (total, embed) with cu_seqlens
@@ -160,9 +159,9 @@ class MHA(nn.Module):
             # cache, so y_t = w0*x_{t-2} + w1*x_{t-1} + w2*x_t + b holds
             # across the prefill/decode boundary exactly as in train mode.
             assert cu_seqlens is None, "dwconv: non-packed only"
-            w = self.param("dwconv_kernel", nn.initializers.normal(0.02),
+            w = self.param("dwconv_kernel", jax.nn.initializers.normal(0.02),
                            (3, 1, qkv_dim), jnp.float32)
-            b_dw = self.param("dwconv_bias", nn.initializers.zeros,
+            b_dw = self.param("dwconv_bias", jax.nn.initializers.zeros,
                               (qkv_dim,), jnp.float32)
 
             def _conv(xin):
@@ -252,14 +251,7 @@ class MHA(nn.Module):
                 if paged:
                     return (self.paged_kv_num_pages, h_k,
                             self.paged_kv_page_size, d)
-                # Round the cache seq allocation up to a 128 multiple: the
-                # decode kernel's HBM->VMEM slab DMA needs a tile size that
-                # divides s_max, and a non-128-divisible s_max degrades it
-                # to 8-row DMAs (measured 143 GB/s vs 646 achievable — the
-                # whole decode step was DMA-issue-bound on this). 128 keeps
-                # slabs >=512 KB without inflating cache memory.
-                s_alloc = -(-self.max_decode_seqlen // 128) * 128
-                return (b, h_k, s_alloc, d)
+                return (b, h_k, self.max_decode_seqlen, d)
 
             if decode:
                 # incremental decoding against the cache collection
@@ -367,14 +359,12 @@ class MHA(nn.Module):
                     assert (self.window_size == (-1, -1)
                             and self.softcap == 0.0 and slopes is None), \
                         "context_parallel: plain causal/non-causal only"
-                    from flash_attn_tpu.interface import _use_interpret
                     from flash_attn_tpu.parallel.attention import (
                         ring_attention_apply)
                     tr = lambda t: jnp.swapaxes(t, 1, 2)  # bshd <-> bhsd
                     ctx = tr(ring_attention_apply(
                         tr(q), tr(k), tr(v), causal=self.causal,
-                        softmax_scale=self.softmax_scale,
-                        interpret=_use_interpret()))
+                        softmax_scale=self.softmax_scale))
                 else:
                     ctx = flash_attn_func(
                         q, k, v, causal=self.causal,
@@ -391,9 +381,7 @@ class MHA(nn.Module):
                         shape = (self.paged_kv_num_pages, h_k,
                                  self.paged_kv_page_size, d)
                     else:
-                        # 128-multiple alloc: see _cache_shape above
-                        s_alloc = -(-self.max_decode_seqlen // 128) * 128
-                        shape = (b, h_k, s_alloc, d)
+                        shape = (b, h_k, self.max_decode_seqlen, d)
                     kcache = self.variable(
                         "cache", "k", lambda: jnp.zeros(shape, cache_dtype))
                     vcache = self.variable(

@@ -1,5 +1,5 @@
 """MLP modules (reference flash_attn/modules/mlp.py ``Mlp``/``GatedMlp``;
-fused-dense epilogues csrc/fused_dense_lib are XLA fusions on TPU).
+fused-dense epilogues csrc/fused_dense_lib are XLA fusions here).
 
 ``ParallelMLP``/``ParallelFusedMLP`` (ops/fused_dense.py:613) need no
 separate class: shard fc1 kernel column-wise and fc2 kernel row-wise on the
@@ -8,9 +8,9 @@ all-gather/reduce-scatter pattern."""
 
 from typing import Callable, Optional
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from flash_attn_tpu.modules import core as nn
 from flash_attn_tpu.ops.activations import gelu_approx, swiglu
 
 
@@ -22,7 +22,6 @@ class Mlp(nn.Module):
     bias2: bool = True
     dtype: jnp.dtype = jnp.bfloat16
 
-    @nn.compact
     def __call__(self, x):
         out_features = self.out_features or x.shape[-1]
         y = nn.Dense(self.hidden_features, use_bias=self.bias1,
@@ -42,7 +41,6 @@ class GatedMlp(nn.Module):
     multiple_of: int = 128
     dtype: jnp.dtype = jnp.bfloat16
 
-    @nn.compact
     def __call__(self, x):
         out_features = self.out_features or x.shape[-1]
         hidden = (self.hidden_features + self.multiple_of - 1

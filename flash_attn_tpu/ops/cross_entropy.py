@@ -77,7 +77,7 @@ def fused_linear_cross_entropy(
     backward writes d_logits IN PLACE of the logits
     (flash_attn/ops/triton/cross_entropy.py, ``inplace_backward``): at
     b=6/s=2k/50k-vocab the fp32 logits (+ their cotangent) are ~2.5 GB —
-    the tensor that capped the training batch size. The TPU-native play is
+    the tensor that capped the training batch size. The play here is
     chunking + rematerialization instead of in-place writes: tokens are
     processed in ``chunk_size`` slices under ``lax.scan``; each slice's
     logits live only inside a ``jax.checkpoint`` region, so the backward
@@ -89,7 +89,7 @@ def fused_linear_cross_entropy(
     Semantics (smoothing, z-loss, ignore_index, logit_scale, reductions)
     match :func:`cross_entropy_loss` applied to
     ``hidden @ kernel[.T] * logit_scale``; the matmul accumulates in fp32
-    (``preferred_element_type``) on the MXU.
+    (``preferred_element_type``) on the tensor cores.
     """
     d = hidden.shape[-1]
     out_shape = labels.shape

@@ -2,10 +2,9 @@
 
 Parity surface for the reference's csrc/layer_norm (``dropout_add_ln_fwd``,
 ln_api.cpp:828) and flash_attn/ops/layer_norm.py:661
-``dropout_add_layer_norm`` / rms_norm.py. On TPU the whole chain is a single
-VPU-bound fusion that XLA builds automatically from jnp ops — a handwritten
-Pallas kernel buys nothing on this op (measured memory-bound), so these are
-jnp compositions with the reference's exact semantics:
+``dropout_add_layer_norm`` / rms_norm.py. The whole chain is one
+memory-bound fusion that XLA builds from jnp ops, so these are jnp
+compositions with the reference's exact semantics:
 
     out = norm(dropout(x0) * rowscale + residual)  [optionally also return
     the pre-norm sum for the residual stream]

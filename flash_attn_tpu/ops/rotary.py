@@ -2,10 +2,10 @@
 
 Parity surface for the reference's rotary stack
 (flash_attn/layers/rotary.py:38 ``ApplyRotaryEmb``,
-flash_attn/ops/triton/rotary.py:102 ``apply_rotary``). On TPU this is a
+flash_attn/ops/triton/rotary.py:102 ``apply_rotary``). This is a
 bandwidth-bound elementwise op that XLA fuses into neighboring kernels, so it
-is written in plain jnp (differentiable for free) rather than Pallas; the
-decode path additionally fuses rotary into the cache-append step.
+is written in plain jnp (differentiable for free); the decode path applies
+rotary to the appended keys before the cache write.
 
 Semantics (matching the reference):
  - rotary_dim = 2 * cos.shape[-1]; only x[..., :rotary_dim] is rotated.

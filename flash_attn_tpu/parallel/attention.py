@@ -2,15 +2,18 @@
 
 This is where the build deliberately goes beyond the reference (SURVEY.md
 §2.5): the reference exports the LSE + combine primitives that external ring
-attention libraries consume; here ring attention over the mesh's ICI links is
-built in, using the same (out, lse) merge algebra as
-kernels/flash_decode.combine_splits.
+attention libraries consume; here ring attention over the mesh is built in,
+using the same (out, lse) merge algebra as backend.combine_splits.
 
  - ``head_parallel_attention``: shard_map over the model axis — heads are
-   split, each device runs the local Pallas kernel; no collectives inside
-   (the surrounding TP linears produce/consume head-sharded activations).
+   split, each device runs local attention (backend.attention); no
+   collectives inside (the surrounding TP linears produce/consume
+   head-sharded activations).
  - ``ring_attention``: KV shards rotate around the seq axis with
    jax.lax.ppermute; each step merges a partial (out, lse) pair online.
+   The partials come from backend.attention with an exact float32 lse; the
+   ring is differentiable by autodiff (each step is rematerialized in the
+   backward, and ppermute transposes to the reverse rotation).
 
 Causal load balance (round 2): tokens are assigned to devices in a
 *striped* (round-robin) layout — global token i lives on device i % P at
@@ -26,16 +29,14 @@ causal FLOPs exactly. ``stripe_sequence``/``unstripe_sequence`` convert
 layouts; the wrappers convert internally unless ``pre_striped=True``.
 """
 
-import functools
 import math
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from flash_attn_tpu.kernels.flash_bwd import flash_attention_bwd
-from flash_attn_tpu.kernels.flash_fwd import flash_attention_fwd
+from flash_attn_tpu import backend
 from flash_attn_tpu.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS
 
 __all__ = ["head_parallel_attention", "ring_attention",
@@ -65,13 +66,23 @@ def unstripe_sequence(x, num_devices: int, axis: int = 2):
     return jnp.swapaxes(x.reshape(shp), axis, axis + 1).reshape(x.shape)
 
 
+def _local_attention(q, k, v, scale, causal=False, strict_causal=False,
+                     window_size=(None, None), softcap=0.0, exact_lse=True):
+    """(b, h, s, d) attention on one device's shard -> (out, lse)."""
+    tr = lambda x: jnp.swapaxes(x, 1, 2)
+    out, lse = backend.attention(
+        tr(q), tr(k), tr(v), softmax_scale=scale, causal=causal,
+        strict_causal=strict_causal, window=window_size, softcap=softcap,
+        exact_lse=exact_lse)
+    return tr(out), lse
+
+
 def head_parallel_attention(
     mesh: Mesh,
     causal: bool = True,
     softmax_scale: Optional[float] = None,
     window_size=(None, None),
     softcap: float = 0.0,
-    interpret: bool = False,
 ):
     """Returns a jitted fn(q, k, v) with q/k/v (b, h, s, d) sharded
     batch->data, heads->model (the reference's ParallelMHA head split,
@@ -79,11 +90,10 @@ def head_parallel_attention(
     spec = P(DATA_AXIS, MODEL_AXIS, None, None)
 
     def local(q, k, v):
-        out, _ = flash_attention_fwd(
-            q, k, v, causal=causal, softmax_scale=softmax_scale,
-            window_size=window_size, softcap=softcap, interpret=interpret,
-        )
-        return out
+        scale = softmax_scale or 1.0 / math.sqrt(q.shape[-1])
+        return _local_attention(q, k, v, scale, causal=causal,
+                                window_size=window_size, softcap=softcap,
+                                exact_lse=False)[0]
 
     return jax.jit(jax.shard_map(
         local, mesh=mesh, in_specs=(spec, spec, spec), out_specs=spec,
@@ -106,40 +116,65 @@ def _merge_partials(o1, lse1, o2, lse2):
     return o, lse
 
 
-def _striped_partial(q, k_cur, v_cur, src_rank, my, scale, causal,
-                     interpret):
-    """One ring step's local partial: ONE kernel, mask picked at runtime.
+def _striped_partial(q, k_cur, v_cur, src_rank, my, scale, causal):
+    """One ring step's local partial, mask picked at runtime.
 
     Striped layout: kv stripe src_rank vs q stripe my attend causally when
     src_rank <= my, strictly-causally when src_rank > my. lax.cond compiles
     both variants once and runs exactly one.
     """
     if not causal:
-        o_p, lse_p = flash_attention_fwd(
-            q, k_cur, v_cur, causal=False, softmax_scale=scale,
-            interpret=interpret)
+        o_p, lse_p = _local_attention(q, k_cur, v_cur, scale)
         return o_p.astype(jnp.float32), lse_p
     o_p, lse_p = jax.lax.cond(
         src_rank <= my,
-        lambda q, k, v: flash_attention_fwd(
-            q, k, v, causal=True, softmax_scale=scale, interpret=interpret),
-        lambda q, k, v: flash_attention_fwd(
-            q, k, v, strict_causal=True, softmax_scale=scale,
-            interpret=interpret),
+        lambda q, k, v: _local_attention(q, k, v, scale, causal=True),
+        lambda q, k, v: _local_attention(q, k, v, scale, strict_causal=True),
         q, k_cur, v_cur)
     return o_p.astype(jnp.float32), lse_p
+
+
+def _ring_local(causal, softmax_scale, axis_name):
+    """The per-device body of ring attention, shared by the jitted
+    ``ring_attention`` wrapper and the in-context ``ring_attention_apply``
+    used from MHA inside an outer jit."""
+
+    def local(q, k, v):
+        P_ = jax.lax.axis_size(axis_name)
+        my = jax.lax.axis_index(axis_name)
+        scale = softmax_scale or 1.0 / math.sqrt(q.shape[-1])
+        perm = [(i, (i + 1) % P_) for i in range(P_)]
+
+        @jax.checkpoint
+        def step(carry, t):
+            o, lse, k_cur, v_cur = carry
+            src_rank = (my - t) % P_  # whose KV stripe we hold this step
+            o_p, lse_p = _striped_partial(
+                q, k_cur, v_cur, src_rank, my, scale, causal)
+            o, lse = _merge_partials(o, lse, o_p, lse_p)
+            k_nxt = jax.lax.ppermute(k_cur, axis_name, perm)
+            v_nxt = jax.lax.ppermute(v_cur, axis_name, perm)
+            return (o, lse, k_nxt, v_nxt), None
+
+        b, h, s_local, _ = q.shape
+        o0 = jnp.zeros((b, h, s_local, v.shape[-1]), jnp.float32)
+        lse0 = jnp.full((b, h, s_local), -jnp.inf, jnp.float32)
+        (o, _, _, _), _ = jax.lax.scan(step, (o0, lse0, k, v),
+                                       jnp.arange(P_))
+        return o.astype(q.dtype)
+
+    return local
 
 
 def ring_attention(
     mesh: Mesh,
     causal: bool = True,
     softmax_scale: Optional[float] = None,
-    interpret: bool = False,
     axis_name: str = SEQ_AXIS,
     pre_striped: bool = False,
 ):
     """Context-parallel attention: q/k/v sharded on seq axis
-    (b, h, s/P, d per device); KV rotates around the ring.
+    (b, h, s/P, d per device); KV rotates around the ring. Differentiable.
 
     Inputs/outputs are in natural token order; internally tokens are
     striped across devices for causal load balance (see module docstring).
@@ -148,34 +183,9 @@ def ring_attention(
     """
     spec = P(DATA_AXIS, MODEL_AXIS, SEQ_AXIS, None)
     n_seq = mesh.shape[axis_name]
-
-    def local(q, k, v):
-        P_ = jax.lax.axis_size(axis_name)
-        my = jax.lax.axis_index(axis_name)
-        scale = softmax_scale or 1.0 / math.sqrt(q.shape[-1])
-
-        def step(carry, t):
-            o, lse, k_cur, v_cur = carry
-            src_rank = (my - t) % P_  # whose KV stripe we hold this step
-            o_p, lse_p = _striped_partial(
-                q, k_cur, v_cur, src_rank, my, scale, causal, interpret)
-            o, lse = _merge_partials(o, lse, o_p, lse_p)
-            # rotate KV to the next device (overlappable with next compute)
-            perm = [(i, (i + 1) % P_) for i in range(P_)]
-            k_nxt = jax.lax.ppermute(k_cur, axis_name, perm)
-            v_nxt = jax.lax.ppermute(v_cur, axis_name, perm)
-            return (o, lse, k_nxt, v_nxt), None
-
-        b, h, s_local, d = q.shape
-        o0 = jnp.zeros((b, h, s_local, v.shape[-1]), jnp.float32)
-        lse0 = jnp.full((b, h, s_local), -jnp.inf, jnp.float32)
-        (o, lse, _, _), _ = jax.lax.scan(
-            step, (o0, lse0, k, v), jnp.arange(P_))
-        return o.astype(q.dtype)
-
     ring = jax.shard_map(
-        local, mesh=mesh, in_specs=(spec, spec, spec), out_specs=spec,
-        check_vma=False,
+        _ring_local(causal, softmax_scale, axis_name), mesh=mesh,
+        in_specs=(spec, spec, spec), out_specs=spec, check_vma=False,
     )
     if not causal or pre_striped:
         return jax.jit(ring)
@@ -187,134 +197,15 @@ def ring_attention(
     return jax.jit(wrapped)
 
 
-def _ring_trainable_local(causal, softmax_scale, interpret, axis_name):
-    """The per-device body of differentiable ring attention (shared by the
-    jitted ``ring_attention_trainable`` wrapper and the in-context
-    ``ring_attention_apply`` used from MHA inside an outer jit)."""
-
-    def local(q, k, v):
-        P_ = jax.lax.axis_size(axis_name)
-        my = jax.lax.axis_index(axis_name)
-        scale = softmax_scale or 1.0 / math.sqrt(q.shape[-1])
-        perm = [(i, (i + 1) % P_) for i in range(P_)]
-
-        @jax.custom_vjp
-        def _ring(q, k, v, my_f):
-            o, _ = _ring_fwd_res(q, k, v, my_f)
-            return o
-
-        def _ring_fwd_res(q, k, v, my_f):
-            my_i = my_f.astype(jnp.int32)
-
-            def step(carry, t):
-                o, lse, k_cur, v_cur = carry
-                src_rank = (my_i - t) % P_
-                o_p, lse_p = _striped_partial(
-                    q, k_cur, v_cur, src_rank, my_i, scale, causal,
-                    interpret)
-                o, lse = _merge_partials(o, lse, o_p, lse_p)
-                k_n = jax.lax.ppermute(k_cur, axis_name, perm)
-                v_n = jax.lax.ppermute(v_cur, axis_name, perm)
-                return (o, lse, k_n, v_n), None
-
-            b, h, s_l, _ = q.shape
-            o0 = jnp.zeros((b, h, s_l, v.shape[-1]), jnp.float32)
-            lse0 = jnp.full((b, h, s_l), -jnp.inf, jnp.float32)
-            (o, lse, _, _), _ = jax.lax.scan(
-                step, (o0, lse0, k, v), jnp.arange(P_))
-            # `my` rides through the signature: the bwd closure must not
-            # capture tracers from the surrounding shard_map trace
-            return o.astype(q.dtype), (q, k, v, o.astype(q.dtype), lse,
-                                       my_i)
-
-        def _ring_bwd(res, g):
-            q, k, v, out, lse, my_r = res
-
-            def step(carry, t):
-                dq_acc, k_cur, v_cur, dk_acc, dv_acc = carry
-                src_rank = (my_r - t) % P_
-
-                if causal:
-                    dq_p, dk_p, dv_p = jax.lax.cond(
-                        src_rank <= my_r,
-                        lambda g, q, k, v, o, l: flash_attention_bwd(
-                            g, q, k, v, o, l, causal=True,
-                            softmax_scale=scale, interpret=interpret),
-                        lambda g, q, k, v, o, l: flash_attention_bwd(
-                            g, q, k, v, o, l, strict_causal=True,
-                            softmax_scale=scale, interpret=interpret),
-                        g, q, k_cur, v_cur, out, lse)
-                else:
-                    dq_p, dk_p, dv_p = flash_attention_bwd(
-                        g, q, k_cur, v_cur, out, lse, causal=False,
-                        softmax_scale=scale, interpret=interpret)
-                dq_acc = dq_acc + dq_p
-                dk_acc = dk_acc + dk_p
-                dv_acc = dv_acc + dv_p
-                # rotate kv and their gradient accumulators together
-                k_n = jax.lax.ppermute(k_cur, axis_name, perm)
-                v_n = jax.lax.ppermute(v_cur, axis_name, perm)
-                dk_n = jax.lax.ppermute(dk_acc, axis_name, perm)
-                dv_n = jax.lax.ppermute(dv_acc, axis_name, perm)
-                return (dq_acc, k_n, v_n, dk_n, dv_n), None
-
-            dq0 = jnp.zeros(q.shape, jnp.float32)
-            dk0 = jnp.zeros(k.shape, jnp.float32)
-            dv0 = jnp.zeros(v.shape, jnp.float32)
-            (dq, _, _, dk, dv), _ = jax.lax.scan(
-                step, (dq0, k, v, dk0, dv0), jnp.arange(P_))
-            # after P steps the accumulators have cycled all the way home
-            return (dq.astype(q.dtype), dk.astype(k.dtype),
-                    dv.astype(v.dtype), jnp.zeros(()))
-
-        _ring.defvjp(_ring_fwd_res, _ring_bwd)
-        return _ring(q, k, v, jnp.asarray(my, jnp.float32))
-
-    return local
-
-
-def ring_attention_trainable(
-    mesh: Mesh,
-    causal: bool = True,
-    softmax_scale: Optional[float] = None,
-    interpret: bool = False,
-    axis_name: str = SEQ_AXIS,
-    pre_striped: bool = False,
-):
-    """Differentiable ring attention (context-parallel training).
-
-    Forward as in ``ring_attention``; the backward rotates the KV shards
-    around the ring again, accumulating dK/dV alongside the traveling chunk
-    (so each device's dK/dV arrive home after P steps) while dQ accumulates
-    locally. Per-chunk gradients come from the standard bwd kernel with
-    the *global* lse — p = exp(s - lse_global) makes each chunk's
-    contribution exact. Each step runs ONE bwd kernel (causal or strict,
-    lax.cond-selected by stripe rank), so CP fwd+bwd FLOPs match the
-    single-device kernels'.
-    """
-    spec = P(DATA_AXIS, MODEL_AXIS, SEQ_AXIS, None)
-    n_seq = mesh.shape[axis_name]
-    local = _ring_trainable_local(causal, softmax_scale, interpret, axis_name)
-
-    ring = jax.shard_map(
-        local, mesh=mesh, in_specs=(spec, spec, spec), out_specs=spec,
-        check_vma=False,
-    )
-    if not causal or pre_striped:
-        return jax.jit(ring)
-
-    def wrapped(q, k, v):
-        st = lambda x: stripe_sequence(x, n_seq)
-        return unstripe_sequence(ring(st(q), st(k), st(v)), n_seq)
-
-    return jax.jit(wrapped)
+# The ring is differentiable by autodiff; the training entry point is the
+# same function.
+ring_attention_trainable = ring_attention
 
 
 def ring_attention_apply(
     q, k, v,  # (b, h, s_global, d) — logical global shapes inside a jit
     causal: bool = True,
     softmax_scale: Optional[float] = None,
-    interpret: bool = False,
     axis_name: str = SEQ_AXIS,
     pre_striped: bool = False,
 ):
@@ -331,15 +222,14 @@ def ring_attention_apply(
     am = jax.sharding.get_abstract_mesh()
     if axis_name not in am.shape or am.shape[axis_name] == 1:
         # no seq axis on the mesh — plain local attention
-        o, _ = flash_attention_fwd(q, k, v, causal=causal,
-                                   softmax_scale=softmax_scale,
-                                   interpret=interpret)
-        return o
+        scale = softmax_scale or 1.0 / math.sqrt(q.shape[-1])
+        return _local_attention(q, k, v, scale, causal=causal,
+                                exact_lse=False)[0]
     n_seq = am.shape[axis_name]
     spec = P(DATA_AXIS, MODEL_AXIS, SEQ_AXIS, None)
-    local = _ring_trainable_local(causal, softmax_scale, interpret, axis_name)
     ring = jax.shard_map(
-        local, in_specs=(spec, spec, spec), out_specs=spec, check_vma=False)
+        _ring_local(causal, softmax_scale, axis_name),
+        in_specs=(spec, spec, spec), out_specs=spec, check_vma=False)
     if not causal or pre_striped:
         return ring(q, k, v)
     st = lambda x: stripe_sequence(x, n_seq)

@@ -1,23 +1,18 @@
 """Analytic communication model + compiled-HLO collective accounting.
 
-The multi-host scaling target (BASELINE.md: >=85% decode scaling 1->4
-hosts) cannot be measured on this rig (one real chip), so it is made
-*estimable* instead (VERDICT r4 #6): an analytic bytes-per-step model for
-the two distributed hot paths — ring-CP training and sharded paged decode
-— plus an HLO parser that counts and sizes the collectives XLA actually
-emitted, so tests can pin the compiled communication volume and catch
-regressions (an accidental all-gather of the KV cache shows up as a
-byte-count explosion, not a silent slowdown).
-
-ICI reference numbers (public: jax-ml.github.io/scaling-book, TPU specs):
-v5e has 4 ICI links/chip at ~45 GB/s usable each way (~186 GB/s/chip
-aggregate); DCN is ~25 GB/s/host. The model reports per-device bytes per
-step; overlap assumptions are noted per path.
+An analytic bytes-per-step model for the two distributed hot paths
+(ring-CP training and sharded paged decode) plus an HLO parser that counts
+and sizes the collectives XLA actually emitted, so tests can pin the
+compiled communication volume and catch regressions (an accidental
+all-gather of the KV cache shows up as a byte-count explosion, not a silent
+slowdown). The model reports per-device bytes per step beside the work
+each step does (attention flops, cache bytes read); times come only from
+measurement on the cards.
 """
 
 import dataclasses
 import re
-from typing import Dict, List
+from typing import Dict
 
 __all__ = [
     "collective_bytes", "ring_cp_model", "sharded_decode_model",
@@ -75,73 +70,53 @@ def collective_bytes(hlo_text: str) -> Dict[str, Dict[str, int]]:
 
 @dataclasses.dataclass
 class CommReport:
-    bytes_per_step: float       # per device, per step
-    ici_seconds: float          # at the given bandwidth, zero overlap
-    compute_seconds: float      # useful work per device
+    bytes_per_step: float       # collective bytes per device, per step
+    work_per_step: float        # attention flops (ring) or cache bytes
+    # read (decode) per device, per step
     overlap_note: str
-
-    @property
-    def comm_fraction(self) -> float:
-        """Comm/compute ratio — scaling efficiency is ~1/(1+f) when comm
-        is NOT overlapped, ~1.0 while f < 1 when fully overlapped."""
-        return self.ici_seconds / max(self.compute_seconds, 1e-12)
 
 
 def ring_cp_model(*, seqlen: int, n_devices: int, heads_kv: int,
                   head_dim: int, heads_q: int, batch: int,
-                  bytes_per_elt: int = 2, ici_gbps: float = 186.0,
-                  peak_tflops: float = 197.0,
-                  mfu: float = 0.5) -> CommReport:
+                  bytes_per_elt: int = 2) -> CommReport:
     """Ring context-parallel attention (parallel/attention.py): each of
-    the N-1 ring steps ppermutes this device's K and V shards (and on the
-    backward additionally the traveling dK/dV accumulators — 2x).
+    the N-1 ring steps ppermutes this device's K and V shards; the
+    backward sends them again (rematerialized steps) with the dK/dV
+    cotangents travelling the reverse ring.
 
     fwd bytes/device/step = (N-1) * 2 * batch * h_k * (s/N) * d * elt
-    bwd adds the same again for K/V plus fp32 dK/dV accumulators.
-    Overlap: each ppermute overlaps the previous shard's attention block
-    (XLA latency-hiding scheduler; the kernel computes while the next
-    shard is in flight), so scaling holds while comm_fraction < 1.
+    bwd adds the same again for K/V plus fp32 dK/dV.
+    Overlap: each ppermute can overlap the previous shard's attention
+    block (XLA latency-hiding scheduler).
     """
     shard = seqlen // n_devices
     kv_bytes = 2 * batch * heads_kv * shard * head_dim * bytes_per_elt
     fwd = (n_devices - 1) * kv_bytes
-    # bwd: K/V travel again + fp32 dK/dV accumulators travel
     bwd = (n_devices - 1) * (kv_bytes + 2 * batch * heads_kv * shard
                              * head_dim * 4)
-    total = fwd + bwd
     # attention flops per device (causal): fwd 0.5*4*h*s^2*d/N + bwd 2.5x
     flops = 3.5 * 4 * batch * heads_q * head_dim * seqlen * seqlen / 2 \
         / n_devices
     return CommReport(
-        bytes_per_step=total,
-        ici_seconds=total / (ici_gbps * 1e9),
-        compute_seconds=flops / (peak_tflops * 1e12 * mfu),
-        overlap_note="ppermute of shard i+1 overlaps attention on shard i "
-                     "(XLA latency-hiding); efficiency ~1 while "
-                     "comm_fraction < 1",
+        bytes_per_step=fwd + bwd, work_per_step=flops,
+        overlap_note="ppermute of shard i+1 can overlap attention on "
+                     "shard i (XLA latency-hiding)",
     )
 
 
 def sharded_decode_model(*, batch: int, heads_q: int, heads_kv: int,
                          head_dim: int, ctx: int, n_devices: int,
-                         kv_bytes_per_elt: int = 1,
-                         ici_gbps: float = 186.0,
-                         hbm_gbps: float = 820.0) -> CommReport:
-    """Sharded paged decode (tests/test_sharded_decode.py north star):
-    the KV pool + heads are sharded (seq x model); each device attends its
-    KV shard and the partial (out, lse) merge is one psum of
-    batch * h_q * (d + 1) fp32 per device — O(batch*h*d), INDEPENDENT of
-    context length, which is why decode scales: the per-device work
-    (reading ctx/N of the cache) shrinks with N while comm stays constant.
-    Decode is HBM-bound, so compute_seconds is the cache-read time."""
+                         kv_bytes_per_elt: int = 1) -> CommReport:
+    """Sharded paged decode (tests/test_sharded_decode.py): the KV pool +
+    heads are sharded (seq x model); each device attends its KV shard and
+    the partial (out, lse) merge is one psum of batch * h_q * (d + 1) fp32
+    per device: O(batch*h*d), INDEPENDENT of context length, while the
+    per-device work (reading ctx/N of the cache) shrinks with N."""
     merge_bytes = batch * heads_q * (head_dim + 1) * 4
     cache_read = 2 * batch * heads_kv * (ctx / n_devices) * head_dim \
         * kv_bytes_per_elt
     return CommReport(
-        bytes_per_step=merge_bytes,
-        ici_seconds=merge_bytes / (ici_gbps * 1e9),
-        compute_seconds=cache_read / (hbm_gbps * 1e9),
-        overlap_note="one psum after the shard-local attention; NOT "
-                     "overlapped (it is the final reduction) — scaling "
-                     "holds while merge time << shard cache-read time",
+        bytes_per_step=merge_bytes, work_per_step=cache_read,
+        overlap_note="one psum after the shard-local attention; not "
+                     "overlapped (it is the final reduction)",
     )

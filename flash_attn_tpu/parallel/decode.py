@@ -1,28 +1,23 @@
 """Multi-chip / multi-host sharded decode.
 
-The BASELINE north star: serve decode with the KV cache sharded over the
-mesh — KV heads on the ``model`` axis (no combine needed: heads are
+Serve decode with the KV cache sharded over the mesh — KV heads on the ``model`` axis (no combine needed: heads are
 independent) and the cache sequence dimension on the ``seq`` axis
 (cross-device split-KV: each device computes a partial (out, lse) for its
 KV shard, then one small all_gather + LSE-weighted merge — the reference's
 flash_fwd_combine algebra across chips instead of across SM splits).
 
 The combine payload is tiny ((b, h, rows, d) fp32 per device) next to the
-cache reads, so scaling is dominated by the sharded HBM bandwidth — the
-mechanism behind the >=85% 1->N host scaling target.
+cache reads, so scaling is dominated by the sharded HBM bandwidth.
 """
 
 import math
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from flash_attn_tpu.kernels.flash_decode import (
-    combine_splits,
-    flash_attention_decode,
-)
+from flash_attn_tpu.backend import decode_attention
 from flash_attn_tpu.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS
 
 __all__ = ["sharded_decode_attention", "sharded_paged_decode_attention"]
@@ -31,10 +26,8 @@ __all__ = ["sharded_decode_attention", "sharded_paged_decode_attention"]
 def _seq_combine(out_p, lse_p, out_dtype):
     """In-network LSE-weighted merge over the seq axis (the
     flash_fwd_combine algebra as collectives): a pmax of the tiny lse
-    then ONE psum of the pre-weighted partial output. psum reduces on the
-    ICI ring (round 1 all_gather'd every partial to every device and ran
-    the full combine P times redundantly — VERDICT r1 weak #5); XLA can
-    overlap it with the next microbatch's cache reads.
+    then ONE psum of the pre-weighted partial output (not an all_gather of
+    every partial: no device repeats the combine).
 
     Per-step collective payload per device (the comm-volume budget for
     scaling estimates): pmax b*h_local floats + psum of
@@ -58,8 +51,6 @@ def sharded_decode_attention(
     mesh: Mesh,
     causal: bool = True,
     softmax_scale: Optional[float] = None,
-    num_splits: int = 1,
-    interpret: bool = False,
 ):
     """Returns fn(q, k_cache, v_cache, cache_seqlens) with:
         q            (b, 1, h, d)       sharded (data, -, model, -)
@@ -79,10 +70,8 @@ def sharded_decode_attention(
         sk_local = jnp.clip(seqlens - lo, 0, s_local)
         d = q.shape[-1]
         scale = softmax_scale or 1.0 / math.sqrt(d)
-        out_p, lse_p = flash_attention_decode(
-            q, kc, vc, sk_local, softmax_scale=scale, causal=False,
-            num_splits=num_splits, interpret=interpret,
-        )
+        out_p, lse_p = decode_attention(
+            q, kc, vc, sk_local, softmax_scale=scale)
         return _seq_combine(out_p, lse_p, q.dtype)
 
     return jax.jit(jax.shard_map(
@@ -96,10 +85,8 @@ def sharded_paged_decode_attention(
     mesh: Mesh,
     page_size: int,
     softmax_scale: Optional[float] = None,
-    num_splits: int = 1,
-    interpret: bool = False,
 ):
-    """The BASELINE north-star crossing: GQA decode against a QUANTIZED
+    """GQA decode against a QUANTIZED
     (int8 / fp8-in-int8-bits) PAGED KV cache sharded across the mesh.
 
     Returns fn(q, k_pool, v_pool, block_table, cache_seqlens,
@@ -115,11 +102,10 @@ def sharded_paged_decode_attention(
     [r*cols_local*page_size, (r+1)*cols_local*page_size) and its table
     entries index its LOCAL pool slice (the engine allocates pages
     shard-locally, so no global page ids cross the wire). Each shard runs
-    the paged decode kernel on its context slice — including the
-    quantized-cache bit-twiddle dequant path — and the partials merge
-    with the same psum LSE-combine as the contiguous path. Reference
-    contract: hopper paged decode (flash_api.cpp block_table) x the
-    multi-host serving target in BASELINE.md.
+    paged decode attention on its context slice, dequantizing with the
+    descales, and the partials merge with the same psum LSE-combine as the
+    contiguous path. Reference contract: hopper paged decode
+    (flash_api.cpp block_table) sharded across devices.
     """
     q_spec = P(DATA_AXIS, None, MODEL_AXIS, None)
     pool_spec = P(SEQ_AXIS, MODEL_AXIS, None, None)
@@ -135,12 +121,9 @@ def sharded_paged_decode_attention(
         sk_local = jnp.clip(seqlens - lo, 0, s_local)
         d = q.shape[-1]
         scale = softmax_scale or 1.0 / math.sqrt(d)
-        out_p, lse_p = flash_attention_decode(
+        out_p, lse_p = decode_attention(
             q, kpool, vpool, sk_local, block_table=block_table,
-            k_descale=kd, v_descale=vd,
-            softmax_scale=scale, causal=False, num_splits=num_splits,
-            interpret=interpret, out_fp32=True,
-        )
+            k_descale=kd, v_descale=vd, softmax_scale=scale)
         return _seq_combine(out_p, lse_p, q.dtype)
 
     def wrapped(q, kpool, vpool, block_table, cache_seqlens,

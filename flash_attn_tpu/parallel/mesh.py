@@ -1,21 +1,21 @@
 """Mesh construction helpers.
 
 The reference's comm backend is NCCL process groups
-(flash_attn/utils/distributed.py) + apex parallel_state; the TPU-native
-replacement is one jax.sharding.Mesh spanning all hosts with named axes:
+(flash_attn/utils/distributed.py) + apex parallel_state; here one
+jax.sharding.Mesh spans all devices with named axes:
 
-  data    — batch (DCN-friendly, maps across hosts)
-  model   — tensor parallel (heads / mlp / vocab), rides ICI
-  seq     — context/ring parallel (long context), rides ICI
+  data    — batch
+  model   — tensor parallel (heads / mlp / vocab)
+  seq     — context/ring parallel (long context)
 
-XLA lowers collectives onto ICI/DCN per the mesh's physical layout.
+XLA lowers the collectives to NCCL. The cards of one host are joined all
+to all, so the mesh is a plain reshape of the device list in order.
 """
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import jax
 import numpy as np
-from jax.experimental import mesh_utils
 from jax.sharding import Mesh
 
 __all__ = ["make_mesh", "DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS"]
@@ -34,9 +34,5 @@ def make_mesh(
     devices = list(devices if devices is not None else jax.devices())
     n = data * model * seq
     assert n <= len(devices), (n, len(devices))
-    shape = (data, model, seq)
-    try:
-        arr = mesh_utils.create_device_mesh(shape, devices=devices[:n])
-    except Exception:
-        arr = np.array(devices[:n]).reshape(shape)
+    arr = np.array(devices[:n]).reshape((data, model, seq))
     return Mesh(arr, (DATA_AXIS, MODEL_AXIS, SEQ_AXIS))

@@ -3,7 +3,7 @@
 The reference implements TP as distinct module classes
 (flash_attn/ops/fused_dense.py:166 ``ColumnParallelLinear``, :206
 ``RowParallelLinear``, modules/embedding.py:114 ``VocabParallelEmbedding``,
-modules/mha.py:707 ``ParallelMHA``). On TPU the SAME model code becomes
+modules/mha.py:707 ``ParallelMHA``). Here the SAME model code becomes
 tensor-parallel by placing PartitionSpecs on the parameter pytree; XLA
 inserts exactly the all-gather / reduce-scatter / all-reduce pattern the
 reference hand-codes (Megatron style), overlapped by the latency-hiding

@@ -1,10 +1,10 @@
 """AOT export + compile-warmup: the deployment surface.
 
 The reference registers its kernels with the torch dispatcher
-(``TORCH_LIBRARY`` — /root/reference/hopper/flash_api.cpp:1673) and tests
+(``TORCH_LIBRARY`` — hopper/flash_api.cpp:1673) and tests
 ``torch.compile``/``torch.export`` round-trips
-(/root/reference/hopper/test_torch_compile_and_export.py). The TPU-native
-analogue is ``jax.export``: a jitted serving step lowers to a portable
+(hopper/test_torch_compile_and_export.py). The analogue
+here is ``jax.export``: a jitted serving step lowers to a portable
 StableHLO artifact that a fresh process can deserialize and execute with
 NO model Python on the path — plus compile-cache warmup so the engine
 never pays an XLA compile on the request path (the reference's CUDA-graph
@@ -15,7 +15,8 @@ Two pieces:
 - ``export_serving_step`` / ``load_serving_step``: serialize/deserialize
   any jittable step function at fixed example shapes (decode step,
   prefill step, full generation step). The artifact embeds the lowered
-  kernels (Mosaic custom calls included), so version-pin the runtime.
+  kernels (cuDNN and Triton custom calls included), so version-pin the
+  runtime.
 - ``InferenceEngine.warmup`` (serving/engine.py): pre-executes every
   bucketed admission shape and the decode block on dummy inputs, so the
   persistent XLA compile cache is hot before traffic arrives.

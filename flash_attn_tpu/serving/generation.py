@@ -3,7 +3,7 @@
 Parity surface for the reference generation stack
 (flash_attn/utils/generation.py:99 ``decode``, ``sample``:69,
 ``InferenceParams``:24, CUDA-graph capture ``update_graph_cache``:618).
-On TPU the CUDA-graph trick is unnecessary: the jitted decode step *is* the
+Here the CUDA-graph trick is unnecessary: the jitted decode step *is* the
 captured graph — one compiled XLA program per (batch, cache-length) config,
 replayed every token. The token loop runs in ``lax.while_loop`` so the whole
 generation is a single device program (no per-token host round-trips).
@@ -57,7 +57,7 @@ def sample_token(logits, key, cfg: GenerationConfig):
 
 def decode(
     input_ids,      # (b, prompt_len)
-    model,          # flax module (GPTLMHeadModel)
+    model,          # GPTLMHeadModel
     params,
     cfg: GenerationConfig,
     rng: Optional[jax.Array] = None,
@@ -72,7 +72,7 @@ def decode(
     (generation.py:124-126), as one stacked array (step t = the logits
     that produced token prompt_len + t; unreached steps are zero).
 
-    The loop is lax.while_loop inside one jit — the TPU analogue of the
+    The loop is lax.while_loop inside one jit — the analogue of the
     reference's CUDA-graph decode replay.
     """
     b, prompt_len = input_ids.shape

@@ -2,7 +2,7 @@
 observability callbacks.
 
 Parity surface for the reference training stack (training/run.py Hydra →
-Lightning ``SequenceModel``, training/src/tasks/seq.py:20), TPU-native:
+Lightning ``SequenceModel``, training/src/tasks/seq.py:20):
  - one jitted train step over a (data, model) mesh — DP+TP from sharding
    alone (the reference's DDP + Megatron modules);
  - ZeRO-1-style optimizer-state sharding (training/src/utils/ddp_zero1.py):
@@ -74,8 +74,8 @@ class TrainConfig:
     # Fused lm_head + chunked cross-entropy (the reference's Triton
     # inplace-backward CE memory play, ops/triton/cross_entropy.py): the
     # (b, s, vocab) fp32 logits tensor never materializes — loss is computed
-    # per token chunk under jax.checkpoint. ~2.5 GB saved at the 913M bench
-    # shape, which is what caps the batch size on a 16 GB chip.
+    # per token chunk under jax.checkpoint (the fp32 logits alone are
+    # 1.6 GB at batch 4 x seq 2048 x vocab 50304).
     fused_ce: bool = True
     fused_ce_chunk: int = 4096
     ema_decay: float = 0.0   # 0 disables (reference callbacks/ema.py)
@@ -86,7 +86,7 @@ class TrainConfig:
     loss_scale_growth_interval: int = 200
     # Adam moment storage dtype: "float32" (reference-faithful) or
     # "bfloat16" (stochastic-rounded moments, adamw_bf16 — halves the
-    # optimizer HBM footprint + per-step state traffic on 16 GB chips)
+    # optimizer's memory footprint and per-step state traffic)
     opt_state_dtype: str = "float32"
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 500
@@ -117,7 +117,7 @@ def _stochastic_round_bf16(x32: jax.Array, salt: jax.Array) -> jax.Array:
 
     Dither bits come from a cheap value+step hash (xorshift-multiply),
     not a counter-based PRNG: threefry over the full optimizer state
-    (~2x913M u32/step) would cost more VPU time than the HBM traffic the
+    (~2x913M u32/step) would cost more vector time than the HBM traffic the
     bf16 state saves. The hash is deterministic per (value, step), which
     keeps the train step bitwise reproducible (the determinism contract)."""
     bits = jax.lax.bitcast_convert_type(x32.astype(jnp.float32), jnp.uint32)
@@ -134,9 +134,9 @@ def scale_by_adam_bf16(b1: float, b2: float, eps: float = 1e-8):
     """Adam moment tracking with bfloat16 moment STORAGE (update math in
     fp32, write-back stochastically rounded).
 
-    TPU-native ZeRO-for-one-chip: on a 16 GB v5e the fp32 Adam state of a
-    913M model costs ~7.3 GB of HBM and ~15 GB/step of read+write traffic
-    (~9 ms at 800 GB/s). bf16 moments halve both. Stochastic rounding
+    The fp32 Adam state of a 913M model is ~7.3 GB of device memory and
+    ~15 GB/step of read+write traffic; bf16 moments halve both.
+    Stochastic rounding
     keeps the tiny (1-b2)*g^2 increments from stalling below bf16's 8-bit
     mantissa (the known RTN failure mode for second moments). The
     reference's apex DistributedFusedAdam keeps fp32 state and shards it
@@ -244,7 +244,8 @@ class Trainer:
         )
 
         ids = jnp.zeros((2, cfg.seqlen), jnp.int32)
-        params = self.model.init(jax.random.PRNGKey(cfg.seed), ids)["params"]
+        params = jax.jit(self.model.init)(jax.random.PRNGKey(cfg.seed),
+                                          ids)["params"]
         with jax.set_mesh(self.mesh):
             shardings = gpt_param_sharding(params, self.mesh)
             self.params = jax.tree_util.tree_map(
@@ -532,21 +533,30 @@ class Trainer:
                 n += 1
         return total / max(n, 1)
 
-    def save_checkpoint(self, dataloader=None, tag: Optional[str] = None):
-        import orbax.checkpoint as ocp
+    def _ckpt_state(self):
+        state = {"params": self.params, "opt_state": self.opt_state}
+        if self.scaler is not None:
+            state["scaler"] = self.scaler
+        return state
 
+    def save_checkpoint(self, dataloader=None, tag: Optional[str] = None):
+        """Write ``<path>.npz`` (every leaf of params/opt_state/scaler as
+        raw bytes under its key path, with a dtype/shape manifest) and
+        ``<path>.meta.json`` (step and sampler state); returns ``path``."""
         path = os.path.join(
             os.path.abspath(self.cfg.ckpt_dir),
             tag or f"step_{self.step_count}")
-        ckptr = ocp.StandardCheckpointer()
-        state = {
-            "params": self.params,
-            "opt_state": self.opt_state,
-        }
-        if self.scaler is not None:
-            state["scaler"] = self.scaler
-        ckptr.save(path, state, force=True)
-        ckptr.wait_until_finished()
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        arrays, manifest = {}, {}
+        for kp, leaf in jax.tree_util.tree_flatten_with_path(
+                self._ckpt_state())[0]:
+            key = jax.tree_util.keystr(kp)
+            a = np.asarray(jax.device_get(leaf))
+            manifest[key] = [str(a.dtype), list(a.shape)]
+            arrays[key] = np.frombuffer(a.tobytes(), np.uint8)
+        arrays["__manifest__"] = np.frombuffer(
+            json.dumps(manifest).encode(), np.uint8)
+        np.savez(path + ".npz", **arrays)
         meta = {"step": self.step_count}
         if dataloader is not None and hasattr(dataloader, "state_dict"):
             meta["sampler"] = dataloader.state_dict()
@@ -555,13 +565,20 @@ class Trainer:
         return path
 
     def load_checkpoint(self, path: str, dataloader=None):
-        import orbax.checkpoint as ocp
-
-        ckptr = ocp.StandardCheckpointer()
-        target = {"params": self.params, "opt_state": self.opt_state}
-        if self.scaler is not None:
-            target["scaler"] = self.scaler
-        state = ckptr.restore(path, target)
+        """Restore what :meth:`save_checkpoint` wrote, onto the current
+        shardings."""
+        leaves, treedef = jax.tree_util.tree_flatten_with_path(
+            self._ckpt_state())
+        restored = []
+        with np.load(path + ".npz") as data:
+            manifest = json.loads(data["__manifest__"].tobytes())
+            for kp, leaf in leaves:
+                key = jax.tree_util.keystr(kp)
+                dtype, shape = manifest[key]
+                a = np.frombuffer(data[key].tobytes(),
+                                  jnp.dtype(dtype)).reshape(shape)
+                restored.append(jax.device_put(a, leaf.sharding))
+        state = jax.tree_util.tree_unflatten(treedef, restored)
         self.params = state["params"]
         self.opt_state = state["opt_state"]
         if self.scaler is not None:

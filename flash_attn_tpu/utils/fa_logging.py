@@ -1,31 +1,26 @@
 """Leveled logging + kernel introspection for flash_attn_tpu.
 
-TPU-native analogue of the reference's unified logging
-(flash_attn/cute/fa_logging.py: a single ``FA_LOG_LEVEL`` env var gating
-host logs and device printf) and kernel-attribute dumping
-(flash_attn/cute/cute_dsl_utils.py:224 ``dump_kernel_attributes``, which
-reads register/local-memory counts off the compiled cubin).
+Analogue of the reference's unified logging (flash_attn/cute/fa_logging.py:
+a single ``FA_LOG_LEVEL`` env var gating host logs and device printf) and
+kernel-attribute dumping (flash_attn/cute/cute_dsl_utils.py:224
+``dump_kernel_attributes``, which reads register/local-memory counts off the
+compiled cubin).
 
-On TPU the equivalents are:
+Here:
 
 - host logs: Python ``logging`` (logger name ``flash_attn_tpu``), gated by
   ``FA_LOG_LEVEL`` exactly as the reference (0 off / 1 host / 2 kernel /
   3 max).
 - kernel attributes: XLA's compiled-executable introspection —
-  ``compiled.memory_analysis()`` (argument/output/temp/peak bytes: the TPU
-  analogue of local_size_bytes) and ``compiled.cost_analysis()`` (flops /
-  bytes accessed / transcendentals — what the CUDA driver exposes as
-  occupancy inputs).
-- device printf: ``pl.debug_print`` inside Pallas kernels — intentionally
-  NOT wired by default (it perturbs Mosaic scheduling); level 3 enables the
-  interpreter-mode trace path instead.
+  ``compiled.memory_analysis()`` (argument/output/temp/peak bytes) and
+  ``compiled.cost_analysis()`` (flops / bytes accessed / transcendentals).
 - timeline profiling: ``jax.profiler`` traces viewable in
   TensorBoard/Perfetto, via the ``trace`` context manager below.
 
-At level >= 2 every Pallas kernel wrapper in this package logs its launch
-configuration (grid, block shapes, cost estimate) once per distinct
-specialization at trace time — zero runtime cost (trace happens once per
-compile, and level 0/1 skips the formatting entirely).
+At level >= 2 the attention seam (backend.attention) logs which
+implementation each distinct specialization chose and its shapes, at trace
+time: zero runtime cost (trace happens once per compile, and level 0/1
+skips the formatting entirely).
 """
 
 from __future__ import annotations
@@ -70,7 +65,7 @@ def _configure_default_handler() -> None:
         if _default_handler is None:
             _default_handler = logging.StreamHandler(sys.stdout)
             _default_handler.setFormatter(
-                logging.Formatter("[FA-TPU] %(message)s"))
+                logging.Formatter("[FA] %(message)s"))
             logger.addHandler(_default_handler)
         logger.setLevel(logging.DEBUG)
     else:
@@ -110,9 +105,9 @@ def log_kernel_launch(kernel_name: str, *, grid=None, blocks=None,
                       cost=None, **attrs) -> None:
     """Level-2 per-specialization kernel-launch log.
 
-    Called by kernel wrappers at trace time — once per distinct shape/config
-    specialization, never per step. ``blocks`` is a dict of logical operand
-    names to block shapes; ``cost`` the pl.CostEstimate-style numbers.
+    Called at trace time — once per distinct shape/config specialization,
+    never per step. ``blocks`` is a dict of logical operand names to block
+    shapes; ``cost`` flop/byte estimates.
     """
     if _log_level < 2:
         return
@@ -137,8 +132,8 @@ def dump_kernel_attributes(fn_or_compiled, *args,
 
     Accepts either a jitted function plus example args (it will be lowered
     and compiled for them) or an already-``.compile()``d XLA executable.
-    Returns a dict with memory analysis (argument/output/temp/peak bytes —
-    the TPU analogue of registers + local memory) and aggregate cost
+    Returns a dict with memory analysis (argument/output/temp/peak bytes)
+    and aggregate cost
     analysis (flops, bytes accessed, transcendentals), and logs it at
     level >= 1.
     """

@@ -1,6 +1,6 @@
 """Golden fp32 reference attention + test fixtures.
 
-TPU-native re-implementation of the reference's golden-test machinery
+Re-implementation of the reference's golden-test machinery
 (cf. flash_attn/utils/testing.py:228 ``attention_ref``,
 tests/test_util.py ``attn_bias_from_alibi_slopes``,
 flash_attn/utils/testing.py:11 ``generate_random_padding_mask``).
@@ -317,3 +317,284 @@ def check_against_ref(out, out_ref_fp32, out_ref_lowprec, *, mult: float = 2.0,
         f"{err_lp:.3e} + {atol:.1e}"
     )
     return err, err_lp
+
+
+# ---------------------------------------------------------------------------
+# Parity cases: each public entry point against attention_ref under the
+# contract above. chip_smoke.py runs them at real widths on the card; the
+# CPU tests run the same code at small widths (tests/test_parity_cases.py).
+# ---------------------------------------------------------------------------
+
+REAL_SIZES = dict(
+    train=(4, 2048, 16, 16, 128),        # (b, s, h, h_k, d), causal
+    long=(4, 8192, 16, 16, 128),         # non-causal
+    gqa=(2, 2048, 32, 8, 128),           # GQA with a sliding window
+    softcap=(1, 2048, 16, 16, 128),
+    varlen=(16, 2048, 4096, 16, 128),    # (seqs, min len, max len, h, d)
+    paged_prefill=(16, 32, 8, 128, 256),  # (seqs, h, h_k, d, page)
+    decode=((8, 4096, 32, 8, 128), (64, 800, 16, 16, 128)),
+    decode_page=256,
+)
+SMALL_SIZES = dict(
+    train=(2, 128, 4, 4, 64),
+    long=(2, 256, 4, 4, 64),
+    gqa=(2, 128, 8, 2, 64),
+    softcap=(1, 128, 4, 4, 64),
+    varlen=(4, 64, 160, 4, 64),
+    paged_prefill=(4, 4, 2, 64, 32),
+    decode=((4, 200, 8, 2, 64), (8, 70, 4, 4, 64)),
+    decode_page=32,
+)
+
+
+def _bound(out, ref, ref_lp, mult, atol=1e-5):
+    out = np.asarray(out, np.float32)
+    ref = np.asarray(ref, np.float32)
+    ref_lp = np.asarray(ref_lp, np.float32)
+    return (float(np.abs(out - ref).max()),
+            float(mult * np.abs(ref_lp - ref).max() + atol))
+
+
+def _refs(fn, *args):
+    """fp32 reference (matmuls at full precision, so a GPU does not run
+    them in TF32) and the same reference computed in the inputs' dtype."""
+    with jax.default_matmul_precision("highest"):
+        ref = jax.jit(lambda *a: fn(*a, upcast=True))(
+            *[a.astype(jnp.float32) for a in args])
+    ref_lp = jax.jit(lambda *a: fn(*a, upcast=False))(*args)
+    return ref, ref_lp
+
+
+def _ref_grads(f_ref, args, g):
+    """Gradients of sum(ref(args) * g): fp32 (full-precision matmuls) and
+    in the inputs' dtype."""
+    def loss(*a, upcast):
+        return (f_ref(*a, upcast=upcast).astype(jnp.float32) * g).sum()
+
+    with jax.default_matmul_precision("highest"):
+        ref = jax.jit(jax.grad(lambda *a: loss(*a, upcast=True),
+                               argnums=(0, 1, 2)))(
+            *[a.astype(jnp.float32) for a in args])
+    lp = jax.jit(jax.grad(lambda *a: loss(*a, upcast=False),
+                          argnums=(0, 1, 2)))(*args)
+    return ref, lp
+
+
+def _grad_checks(name, f_impl, f_ref, args, g, mult=3.0):
+    """dq/dk/dv of sum(out * g) through f_impl vs through f_ref (the
+    repo's gradient contract uses 3x the low-precision error)."""
+    got = jax.jit(jax.grad(
+        lambda *a: (f_impl(*a).astype(jnp.float32) * g).sum(),
+        argnums=(0, 1, 2)))(*args)
+    ref, lp = _ref_grads(f_ref, args, g)
+    return [(f"{name} {n}",) + _bound(a, r, l, mult)
+            for n, a, r, l in zip(("dq", "dk", "dv"), got, ref, lp)]
+
+
+def _rand(key, shape, dtype=jnp.bfloat16):
+    return jax.random.normal(key, shape, jnp.float32).astype(dtype)
+
+
+def _dense_case(name, b, s, h, h_k, d, *, grad, ref_heads=None, **kw):
+    """flash_attn_func (+ its gradient) on (b, s, h/h_k, d) bf16 inputs.
+    ``ref_heads`` limits the reference to the first batch row and that
+    many heads (rows and heads are independent), to bound its memory."""
+    from flash_attn_tpu import flash_attn_func
+
+    ks = jax.random.split(jax.random.PRNGKey(hash(name) % 2**31), 4)
+    q = _rand(ks[0], (b, s, h, d))
+    k = _rand(ks[1], (b, s, h_k, d))
+    v = _rand(ks[2], (b, s, h_k, d))
+    out = jax.jit(lambda q, k, v: flash_attn_func(q, k, v, **kw))(q, k, v)
+    ref_kw = dict(kw)
+    if "window_size" in ref_kw:
+        ref_kw["window_size"] = tuple(
+            None if w < 0 else w for w in ref_kw["window_size"])
+    f_ref = lambda q, k, v, upcast: attention_ref(
+        q, k, v, upcast=upcast, reorder_ops=not upcast, **ref_kw)[0]
+    if ref_heads is not None:
+        g_ = h // h_k
+        sl = (slice(0, 1), slice(None), slice(0, ref_heads))
+        slk = (slice(0, 1), slice(None), slice(0, max(1, ref_heads // g_)))
+        ref, ref_lp = _refs(f_ref, q[sl], k[slk], v[slk])
+        checks = [(f"{name} out",) + _bound(out[sl], ref, ref_lp, 2.0)]
+    else:
+        ref, ref_lp = _refs(f_ref, q, k, v)
+        checks = [(f"{name} out",) + _bound(out, ref, ref_lp, 2.0)]
+    if grad:
+        g = _rand(ks[3], out.shape, jnp.float32)
+        checks += _grad_checks(
+            name, lambda q, k, v: flash_attn_func(q, k, v, **kw),
+            f_ref, (q, k, v), g)
+    return checks
+
+
+def _varlen_case(seqs, lo, hi, h, d, grad=True, check_seqs=2):
+    """flash_attn_varlen_func (+ gradient) on packed sequences of lengths
+    uniform in [lo, hi], causal; the shortest and longest sequences are
+    checked against per-sequence references."""
+    from flash_attn_tpu import flash_attn_varlen_func
+
+    rng = np.random.default_rng(0)
+    lens = [int(x) for x in rng.integers(lo, hi + 1, size=seqs)]
+    cu = jnp.asarray(np.concatenate([[0], np.cumsum(lens)]), jnp.int32)
+    ks = jax.random.split(jax.random.PRNGKey(1), 4)
+    tot = int(cu[-1])
+    q, k, v = (_rand(kk, (tot, h, d)) for kk in ks[:3])
+    g = _rand(ks[3], (tot, h, d), jnp.float32)
+    mx = max(lens)
+    f = lambda q, k, v: flash_attn_varlen_func(q, k, v, cu, cu, mx, mx,
+                                               causal=True)
+    out = jax.jit(f)(q, k, v)
+    grads = None
+    if grad:
+        grads = jax.jit(jax.grad(
+            lambda *a: (f(*a).astype(jnp.float32) * g).sum(),
+            argnums=(0, 1, 2)))(q, k, v)
+    f_ref = lambda q, k, v, upcast: attention_ref(
+        q, k, v, causal=True, upcast=upcast, reorder_ops=not upcast)[0]
+    checks = []
+    picks = sorted({int(np.argmin(lens)), int(np.argmax(lens))})[:check_seqs]
+    for i in picks:
+        sl = slice(int(cu[i]), int(cu[i + 1]))
+        qi, ki, vi = (x[sl][None] for x in (q, k, v))
+        ref, ref_lp = _refs(f_ref, qi, ki, vi)
+        checks.append((f"varlen seq{i} len{lens[i]} out",)
+                      + _bound(out[sl][None], ref, ref_lp, 2.0))
+        if grad:
+            ref_g, lp_g = _ref_grads(f_ref, (qi, ki, vi), g[sl][None])
+            for n, got, r, l in zip(("dq", "dk", "dv"), grads, ref_g, lp_g):
+                checks.append((f"varlen seq{i} {n}",)
+                              + _bound(got[sl][None], r, l, 3.0))
+    return checks
+
+
+def _paged_pool(key, lens_k, h_k, d, page, dtype=jnp.bfloat16):
+    """Shuffled page pool holding each row's keys/values, page 0 unused."""
+    b = len(lens_k)
+    maxpg = max(-(-lk // page) for lk in lens_k)
+    n_pages = b * maxpg + 1
+    perm = np.random.default_rng(3).permutation(np.arange(1, n_pages))
+    table = perm.reshape(b, maxpg).astype(np.int32)
+    ks = jax.random.split(key, 2)
+    kp = _rand(ks[0], (n_pages, h_k, page, d), jnp.float32)
+    vp = _rand(ks[1], (n_pages, h_k, page, d), jnp.float32)
+    return kp, vp, jnp.asarray(table)
+
+
+def _lay_out_pages(pool, row, length):
+    pages = pool[row]                                   # (P, h_k, ps, d)
+    lin = jnp.swapaxes(pages, 1, 2).reshape(-1, pool.shape[1],
+                                            pool.shape[3])
+    return lin[:length][None]
+
+
+def _paged_prefill_case(seqs, h, h_k, d, page, check_seqs=2):
+    """Chunked prefill of packed query chunks against a paged cache
+    (flash_attn_varlen_func(block_table=...)), bottom-right causal."""
+    from flash_attn_tpu import flash_attn_varlen_func
+
+    rng = np.random.default_rng(0)
+    lo, hi = (256, 1024) if page >= 128 else (16, 64)
+    lens_q = [int(x) for x in rng.integers(lo, hi + 1, size=seqs)]
+    lens_k = [lq + int(x) for lq, x in
+              zip(lens_q, rng.integers(0, hi, size=seqs))]
+    cu = jnp.asarray(np.concatenate([[0], np.cumsum(lens_q)]), jnp.int32)
+    kp, vp, table = _paged_pool(jax.random.PRNGKey(2), lens_k, h_k, d, page)
+    kp, vp = kp.astype(jnp.bfloat16), vp.astype(jnp.bfloat16)
+    q = _rand(jax.random.PRNGKey(4), (int(cu[-1]), h, d))
+    seqk = jnp.asarray(lens_k, jnp.int32)
+    out = jax.jit(lambda q, kp, vp: flash_attn_varlen_func(
+        q, kp, vp, cu, None, max(lens_q), max(lens_k), seqused_k=seqk,
+        block_table=table, causal=True))(q, kp, vp)
+    f_ref = lambda q, k, v, upcast: attention_ref(
+        q, k, v, causal=True, upcast=upcast, reorder_ops=not upcast)[0]
+    checks = []
+    for i in sorted({int(np.argmin(lens_q)), int(np.argmax(lens_k))})[
+            :check_seqs]:
+        sl = slice(int(cu[i]), int(cu[i + 1]))
+        ki = _lay_out_pages(kp, table[i], lens_k[i])
+        vi = _lay_out_pages(vp, table[i], lens_k[i])
+        ref, ref_lp = _refs(f_ref, q[sl][None], ki, vi)
+        checks.append((f"paged prefill seq{i} q{lens_q[i]} k{lens_k[i]}",)
+                      + _bound(out[sl][None], ref, ref_lp, 2.0))
+    return checks
+
+
+def _decode_case(b, ctx, h, h_k, d, page, cache_dtype):
+    """flash_attn_with_kvcache, one new token per row, against a paged
+    cache of ``cache_dtype`` with per-(row, kv-head) descales; the
+    reference attends over the dequantized cache."""
+    from flash_attn_tpu import flash_attn_with_kvcache
+
+    rng = np.random.default_rng(b + ctx)
+    lens = [int(x) for x in rng.integers(ctx // 2, ctx + 1, size=b)]
+    kp32, vp32, table = _paged_pool(jax.random.PRNGKey(5), lens, h_k, d,
+                                    page)
+    kd = vd = None
+    if cache_dtype == jnp.bfloat16:
+        kp, vp = kp32.astype(cache_dtype), vp32.astype(cache_dtype)
+        deq_k, deq_v = kp, vp
+    else:
+        # one descale per (row, kv head): the pool pages of row i carry
+        # row i's scale, so quantize each row's pages with its own
+        kd = jnp.asarray(rng.uniform(0.02, 0.04, size=(b, h_k)), jnp.float32)
+        vd = jnp.asarray(rng.uniform(0.02, 0.04, size=(b, h_k)), jnp.float32)
+        page_row = np.zeros((kp32.shape[0],), np.int32)
+        for i in range(b):
+            page_row[np.asarray(table[i])] = i
+        ks = kd[page_row][:, :, None, None]
+        vs = vd[page_row][:, :, None, None]
+        if cache_dtype == jnp.int8:
+            quant = lambda x, s: jnp.clip(jnp.round(x / s), -127, 127
+                                          ).astype(jnp.int8)
+        else:
+            quant = lambda x, s: (x / s).astype(cache_dtype)
+        kp, vp = quant(kp32, ks), quant(vp32, vs)
+        deq_k = (kp.astype(jnp.float32) * ks).astype(jnp.bfloat16)
+        deq_v = (vp.astype(jnp.float32) * vs).astype(jnp.bfloat16)
+    q = _rand(jax.random.PRNGKey(6), (b, 1, h, d))
+    seqlens = jnp.asarray(lens, jnp.int32)
+    out = jax.jit(lambda q, kp, vp: flash_attn_with_kvcache(
+        q, kp, vp, cache_seqlens=seqlens, block_table=table, causal=True,
+        k_descale=kd, v_descale=vd))(q, kp, vp)
+    s_max = table.shape[1] * page
+    k_lin = jnp.swapaxes(deq_k[table], 2, 3).reshape(b, s_max, h_k, d)
+    v_lin = jnp.swapaxes(deq_v[table], 2, 3).reshape(b, s_max, h_k, d)
+    mask = jnp.arange(s_max)[None, :] < seqlens[:, None]
+    f_ref = lambda q, k, v, upcast: attention_ref(
+        q, k, v, key_padding_mask=mask, upcast=upcast,
+        reorder_ops=not upcast)[0]
+    ref, ref_lp = _refs(f_ref, q, k_lin, v_lin)
+    name = f"decode {jnp.dtype(cache_dtype).name} b{b} ctx{ctx} h{h}/{h_k}"
+    return [(name,) + _bound(out, ref, ref_lp, 2.0)]
+
+
+def parity_cases(sizes=REAL_SIZES):
+    """name -> zero-argument callable returning [(check, err, bound)]."""
+    b, s, h, h_k, d = sizes["train"]
+    cases = {
+        "flash_attn_func causal (training shape)": lambda: _dense_case(
+            "causal", b, s, h, h_k, d, grad=True, causal=True),
+    }
+    b, s, h, h_k, d = sizes["long"]
+    cases["flash_attn_func non-causal long"] = lambda: _dense_case(
+        "long", b, s, h, h_k, d, grad=False, ref_heads=4)
+    b, s, h, h_k, d = sizes["gqa"]
+    cases["flash_attn_func GQA sliding window"] = lambda: _dense_case(
+        "gqa-window", b, s, h, h_k, d, grad=True, causal=True,
+        window_size=(s // 4, 0))
+    b, s, h, h_k, d = sizes["softcap"]
+    cases["flash_attn_func softcap"] = lambda: _dense_case(
+        "softcap", b, s, h, h_k, d, grad=True, causal=True, softcap=30.0)
+    seqs, lo, hi, h, d = sizes["varlen"]
+    cases["flash_attn_varlen_func"] = lambda: _varlen_case(seqs, lo, hi, h, d)
+    seqs, h, h_k, d, page = sizes["paged_prefill"]
+    cases["flash_attn_varlen_func paged prefill"] = \
+        lambda: _paged_prefill_case(seqs, h, h_k, d, page)
+    for shape in sizes["decode"]:
+        for dt in (jnp.bfloat16, jnp.int8, jnp.float8_e4m3fn):
+            cases[f"flash_attn_with_kvcache {jnp.dtype(dt).name} {shape}"] = (
+                lambda shape=shape, dt=dt: _decode_case(
+                    *shape, sizes["decode_page"], dt))
+    return cases

@@ -3,8 +3,8 @@
 
 The reference launches training as ``python run.py experiment=owt/gpt2s-flash``
 with a Hydra config tree (/root/reference/training/run.py +
-training/configs/experiment/*.yaml). The TPU-native equivalent keeps the
-same shape without a Hydra dependency: a JSON experiment file maps onto the
+training/configs/experiment/*.yaml). This equivalent keeps the same shape
+without a Hydra dependency: a JSON experiment file maps onto the
 GPTConfig / TrainConfig dataclasses, and dotted ``key=value`` CLI overrides
 compose on top (Hydra's override grammar, restricted to assignments).
 
@@ -23,7 +23,7 @@ Config schema (every key optional — defaults are the dataclass defaults):
 
 ``trainer.seqlen`` drives both the dataloader and the model; ``data.path``
 may be omitted for a smoke run on synthetic tokens (deterministic PRNG
-stream — useful for CI and for compile-cache warmup on a new pod).
+stream — useful for CI and for compile-cache warmup on a new machine).
 """
 
 import argparse
@@ -122,6 +122,9 @@ def make_dataloader(cfg: Dict[str, Any], train_cfg, path_key="path"):
 
 
 def main(argv=None):
+    from flash_attn_tpu.utils.runtime import configure_compile_cache
+
+    configure_compile_cache()
     cfg = parse_args(sys.argv[1:] if argv is None else argv)
     trainer, train_cfg = build(cfg)
     loader = make_dataloader(cfg, train_cfg)

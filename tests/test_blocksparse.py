@@ -26,8 +26,7 @@ def test_blocksparse_matches_dense_mask(causal):
 
     kv_num, kv_idx = blockmask_to_kv_indices(blockmask)
     out, lse = flash_attention_blocksparse_fwd(
-        q, k, v, kv_num, kv_idx, causal=causal, block_q=bq, block_k=bk,
-        interpret=True)
+        q, k, v, kv_num, kv_idx, causal=causal, block_q=bq, block_k=bk)
 
     # dense reference: expand block mask to element mask
     em = np.kron(np.asarray(blockmask), np.ones((bq, bk), bool))
@@ -54,16 +53,14 @@ def test_blocksparse_empty_row():
     blockmask = jnp.zeros((2, 2), bool).at[1, 0].set(True)
     kv_num, kv_idx = blockmask_to_kv_indices(blockmask)
     out, lse = flash_attention_blocksparse_fwd(
-        q, k, v, kv_num, kv_idx, block_q=128, block_k=128, interpret=True)
+        q, k, v, kv_num, kv_idx, block_q=128, block_k=128)
     np.testing.assert_allclose(np.asarray(out[:, :128]), 0.0, atol=1e-6)
     assert bool(jnp.all(jnp.isneginf(lse[:, :128])))
 
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_blocksparse_backward_matches_dense(causal):
-    """Blocksparse grads == dense-with-blockmask autodiff (reference
-    cute/block_sparsity.py:80 compute_dq_write_order determinism contract:
-    fixed-order accumulation here, no atomics)."""
+    """Blocksparse grads == dense-with-blockmask autodiff."""
     from flash_attn_tpu.kernels.flash_blocksparse import (
         flash_attention_blocksparse)
 
@@ -82,7 +79,7 @@ def test_blocksparse_backward_matches_dense(causal):
 
     def loss(q_, k_, v_):
         out = flash_attention_blocksparse(
-            q_, k_, v_, kv_num, kv_idx, None, causal, bqk, bqk, True)
+            q_, k_, v_, kv_num, kv_idx, None, causal, bqk, bqk)
         return (out * g).sum()
 
     dq, dk, dv = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)

@@ -1,94 +1,68 @@
-"""Backward layout/path parity (reference tests/test_flash_attn.py:2303
+"""Backward layout parity (reference tests/test_flash_attn.py:2303
 ``test_flash_attn_bwd_transpose``: grads must be layout-independent).
 
-On TPU the two layout-sensitive implementations are the fused bshd-native
-single-pass backward (flash_bwd_fused) and the two-kernel bhsd backward
-(flash_bwd). Both must produce the same grads as each other and as the
-fp32 reference, for even/odd shapes and GQA."""
+Gradients through the (b, s, h, d) entry point equal gradients through the
+packed entry points over the same tensors, and both match the fp32
+reference, for even/odd shapes and GQA."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attn_tpu.kernels.flash_bwd import flash_attention_bwd
-from flash_attn_tpu.kernels.flash_bwd_fused import (
-    flash_attention_bwd_fused,
-    fits_vmem,
-)
-from flash_attn_tpu.kernels.flash_fwd import flash_attention_fwd
+from flash_attn_tpu import flash_attn_func, flash_attn_kvpacked_func
+from flash_attn_tpu.utils.testing import attention_ref
+
+
+def _grads(f, q, k, v, do):
+    return jax.grad(lambda q, k, v: (f(q, k, v).astype(jnp.float32)
+                                     * do).sum(), argnums=(0, 1, 2))(q, k, v)
 
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("sq,sk,h,h_k,d", [
     (256, 256, 4, 4, 128),
     (192, 320, 4, 2, 128),   # cross-len + GQA
-    (256, 256, 2, 2, 64),    # d=64: fused falls to bhsd-block layout
+    (256, 256, 2, 2, 64),
 ])
-def test_fused_vs_twokernel_grads(sq, sk, h, h_k, d, causal):
+def test_grads_layout_independent(sq, sk, h, h_k, d, causal):
     b = 2
     ks = jax.random.split(jax.random.PRNGKey(sq + d + causal), 4)
-    q = jax.random.normal(ks[0], (b, h, sq, d), jnp.bfloat16)
-    k = jax.random.normal(ks[1], (b, h_k, sk, d), jnp.bfloat16)
-    v = jax.random.normal(ks[2], (b, h_k, sk, d), jnp.bfloat16)
-    do = jax.random.normal(ks[3], (b, h, sq, d), jnp.bfloat16)
+    q = jax.random.normal(ks[0], (b, sq, h, d), jnp.float32)
+    k = jax.random.normal(ks[1], (b, sk, h_k, d), jnp.float32)
+    v = jax.random.normal(ks[2], (b, sk, h_k, d), jnp.float32)
+    do = jax.random.normal(ks[3], (b, sq, h, d), jnp.float32)
 
-    interp = jax.default_backend() == "cpu"
-    out, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True,
-                                   interpret=interp)
-
-    # two-kernel path (bhsd)
-    dq2, dk2, dv2 = flash_attention_bwd(do, q, k, v, out, lse, causal=causal,
-                                        interpret=interp)
-
-    # fused path (bshd inputs)
-    tr = lambda x: jnp.swapaxes(x, 1, 2)
-    dq1, dk1, dv1 = flash_attention_bwd_fused(
-        tr(do), tr(q), tr(k), tr(v), tr(out), lse, causal=causal,
-        interpret=interp)
-    dq1, dk1, dv1 = tr(dq1), tr(dk1), tr(dv1)
-
-    for name, a, bb in (("dq", dq1, dq2), ("dk", dk1, dk2), ("dv", dv1, dv2)):
-        aa = np.asarray(a, np.float32)
-        bbb = np.asarray(bb, np.float32)
-        # identical math, different tiling/layout: near-bitwise agreement
-        err = np.abs(aa - bbb).max()
-        tol = 2e-2 * max(1.0, np.abs(bbb).max())
-        assert err <= tol, (name, err, tol)
-
-
-def test_fused_vmem_gate():
-    """The auto dispatcher's VMEM gate: huge seqlen_k must route to the
-    two-kernel path rather than over-allocating VMEM accumulators."""
-    assert fits_vmem(4096, 128, 128, 512)
-    assert not fits_vmem(65536, 128, 128, 512)
+    direct = _grads(lambda q, k, v: flash_attn_func(q, k, v, causal=causal),
+                    q, k, v, do)
+    packed = _grads(lambda q, k, v: flash_attn_kvpacked_func(
+        q, jnp.stack([k, v], axis=2), causal=causal), q, k, v, do)
+    ref = _grads(lambda q, k, v: attention_ref(q, k, v, causal=causal)[0],
+                 q, k, v, do)
+    for name, a, p, r in zip(("dq", "dk", "dv"), direct, packed, ref):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(p),
+                                      err_msg=name)
+        np.testing.assert_allclose(np.asarray(a), np.asarray(r), atol=2e-4,
+                                   rtol=2e-4, err_msg=name)
 
 
 @pytest.mark.parametrize("causal", [False, True])
-def test_fused_head_fold_multi_segment(monkeypatch, causal):
-    """Head folding with hf < h_k: more than one kv-head BLOCK per batch,
-    exercising the folded segment-flush DMA at a nonzero head offset
-    (dst column hk_block * hf * d)."""
-    monkeypatch.setenv("FA_BWD_FOLD", "2")
-    b, h, s, d = 1, 4, 256, 128
+def test_gqa_grads_sum_over_group(causal):
+    """dK/dV of a shared kv head are the sum over its query-head group:
+    GQA grads equal MHA grads of the repeated kv, summed back."""
+    b, h, h_k, s, d = 1, 4, 2, 256, 64
     ks = jax.random.split(jax.random.PRNGKey(3 + causal), 4)
-    q = jax.random.normal(ks[0], (b, h, s, d), jnp.bfloat16)
-    k = jax.random.normal(ks[1], (b, h, s, d), jnp.bfloat16)
-    v = jax.random.normal(ks[2], (b, h, s, d), jnp.bfloat16)
-    do = jax.random.normal(ks[3], (b, h, s, d), jnp.bfloat16)
-    interp = jax.default_backend() == "cpu"
-    out, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True,
-                                   interpret=interp)
-    dq2, dk2, dv2 = flash_attention_bwd(do, q, k, v, out, lse, causal=causal,
-                                        interpret=interp)
-    tr = lambda x: jnp.swapaxes(x, 1, 2)
-    dq1, dk1, dv1 = flash_attention_bwd_fused(
-        tr(do), tr(q), tr(k), tr(v), tr(out), lse, causal=causal,
-        interpret=interp)
-    for name, a, bb in (("dq", tr(dq1), dq2), ("dk", tr(dk1), dk2),
-                        ("dv", tr(dv1), dv2)):
-        aa = np.asarray(a, np.float32)
-        bbb = np.asarray(bb, np.float32)
-        err = np.abs(aa - bbb).max()
-        tol = 2e-2 * max(1.0, np.abs(bbb).max())
-        assert err <= tol, (name, err, tol)
+    q = jax.random.normal(ks[0], (b, s, h, d), jnp.float32)
+    k = jax.random.normal(ks[1], (b, s, h_k, d), jnp.float32)
+    v = jax.random.normal(ks[2], (b, s, h_k, d), jnp.float32)
+    do = jax.random.normal(ks[3], (b, s, h, d), jnp.float32)
+    f = lambda q, k, v: flash_attn_func(q, k, v, causal=causal)
+    dq, dk, dv = _grads(f, q, k, v, do)
+    rep = lambda x: jnp.repeat(x, h // h_k, axis=2)
+    dq_m, dk_m, dv_m = _grads(f, q, rep(k), rep(v), do)
+    fold = lambda x: x.reshape(b, s, h_k, h // h_k, d).sum(axis=3)
+    np.testing.assert_allclose(np.asarray(dq), np.asarray(dq_m), atol=1e-5)
+    np.testing.assert_allclose(np.asarray(dk), np.asarray(fold(dk_m)),
+                               atol=1e-4)
+    np.testing.assert_allclose(np.asarray(dv), np.asarray(fold(dv_m)),
+                               atol=1e-4)

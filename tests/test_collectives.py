@@ -1,12 +1,10 @@
-"""Compiled-HLO collective accounting (VERDICT r4 #6).
+"""Compiled-HLO collective accounting.
 
-Multi-host hardware isn't available on this rig, so the >=85% scaling
-target is pinned analytically: parallel/comm_model.py predicts the
-bytes/step each distributed hot path should move, and these tests parse
-the COMPILED HLO on the virtual 8-device mesh to assert XLA emitted
-collectives of that order — a regression that starts gathering the KV
-cache or the activations shows up as a byte-count explosion here, not as
-a silent multi-host slowdown later.
+parallel/comm_model.py predicts the bytes/step each distributed hot path
+should move, and these tests parse the COMPILED HLO on the virtual
+8-device mesh to assert XLA emitted collectives of that order: a
+regression that starts gathering the KV cache or the activations shows up
+as a byte-count explosion here, not as a silent slowdown later.
 """
 
 import jax
@@ -48,8 +46,9 @@ def test_ring_cp_train_step_collective_budget():
                           head_dim=e // h, batch=b, bytes_per_elt=4)
     predicted = model.bytes_per_step * layers
     got = acc["collective-permute"]["bytes"]
-    # fwd (N-1 K/V steps) + bwd per layer
-    assert acc["collective-permute"]["count"] >= 2 * (N - 1) * layers, acc
+    # each layer's ring scan rotates K and V forward, and its backward
+    # rotates their cotangents the other way: >= 4 ppermute ops per layer
+    assert acc["collective-permute"]["count"] >= 4 * layers, acc
     assert 0.2 * predicted <= got <= 4.0 * predicted, (got, predicted, acc)
     # the regression catcher: no collective moves the full activations
     # (b*s*e f32 = the unsharded residual stream) or more
@@ -77,7 +76,7 @@ def test_sharded_paged_decode_collective_budget():
     table = jnp.zeros((b, n_cols), jnp.int32)
     seqlens = jnp.array([900, 500], jnp.int32)
 
-    fn = sharded_paged_decode_attention(mesh, page_size=ps, interpret=True)
+    fn = sharded_paged_decode_attention(mesh, page_size=ps)
     jfn = jax.jit(lambda q, kp, vp, t, sl, kd, vd:
                   fn(q, kp, vp, t, sl, k_descale=kd, v_descale=vd))
     hlo = jfn.lower(q, kp, vp, table, seqlens, kd, kd).compile().as_text()
@@ -96,12 +95,16 @@ def test_sharded_paged_decode_collective_budget():
 
 
 def test_comm_model_scaling_estimates():
-    """The published scaling estimates themselves: at the BASELINE.md
-    shapes both paths sit comfortably under comm_fraction 1 (the condition
-    for >=85% scaling with overlap)."""
-    ring = ring_cp_model(seqlen=32768, n_devices=8, heads_kv=16, heads_q=16,
-                         head_dim=128, batch=1)
-    assert ring.comm_fraction < 0.5, ring
-    dec = sharded_decode_model(batch=64, heads_q=32, heads_kv=8,
-                               head_dim=128, ctx=8192, n_devices=4)
-    assert dec.comm_fraction < 0.5, dec
+    """The model's byte accounting: the decode merge is independent of
+    context and tiny beside the shard's cache reads; ring traffic per
+    device falls as the ring grows while its work falls faster."""
+    dec = [sharded_decode_model(batch=64, heads_q=32, heads_kv=8,
+                                head_dim=128, ctx=ctx, n_devices=4)
+           for ctx in (2048, 8192)]
+    assert dec[0].bytes_per_step == dec[1].bytes_per_step
+    assert dec[1].bytes_per_step < 0.01 * dec[1].work_per_step, dec[1]
+    ring = [ring_cp_model(seqlen=32768, n_devices=n, heads_kv=16,
+                          heads_q=16, head_dim=128, batch=1)
+            for n in (2, 8)]
+    assert ring[1].work_per_step == ring[0].work_per_step / 4
+    assert ring[1].bytes_per_step < 2 * ring[0].bytes_per_step

@@ -1,16 +1,13 @@
-"""Dispatch-layer unit tests: combine algebra edge cases, num_splits
-heuristic, scheduler metadata, window normalization."""
+"""Dispatch-layer unit tests: combine algebra edge cases, scheduler
+metadata, window normalization."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attn_tpu import flash_attn_combine
-from flash_attn_tpu.dispatch.config import (
-    normalize_window,
-    num_splits_heuristic,
-)
+from flash_attn_tpu import flash_attn_combine, flash_attn_varlen_func
+from flash_attn_tpu.backend import normalize_window
 from flash_attn_tpu.dispatch.scheduler_metadata import get_scheduler_metadata
 
 
@@ -44,25 +41,35 @@ def test_combine_empty_split_is_identity():
     np.testing.assert_allclose(np.asarray(l), 0.5, atol=1e-6)
 
 
-def test_num_splits_heuristic():
-    assert num_splits_heuristic(total_mblocks=16, num_cores=2,
-                                num_kv_blocks=8) == 1  # plenty of work
-    assert num_splits_heuristic(total_mblocks=1, num_cores=2,
-                                num_kv_blocks=8) >= 2  # starved cores split
-
-
 def test_normalize_window():
     assert normalize_window((-1, -1)) == (None, None)
     assert normalize_window((8, 0)) == (8, 0)
     assert normalize_window((None, 5)) == (None, 5)
 
 
-def test_scheduler_metadata_bands():
+def test_scheduler_metadata_accepted_and_unused():
+    """get_scheduler_metadata records the problem; passing it changes
+    nothing (the attention paths schedule their own tiles)."""
     cu = jnp.array([0, 100, 300], jnp.int32)
     md = get_scheduler_metadata(
         batch_size=2, max_seqlen_q=200, max_seqlen_k=200, num_heads=4,
         num_heads_kv=4, headdim=64, cu_seqlens_q=cu, cu_seqlens_k=cu,
-        causal=True)
-    assert md.meta.jband_min.shape == (md.num_q_tiles,)
-    # causal: band max never exceeds total kv tiles
-    assert int(md.meta.jband_max.max()) < md.num_k_tiles
+        causal=True, window_size=(-1, -1))
+    assert md.max_seqlen_q == 200 and md.window_size == (None, None)
+    x = jax.random.normal(jax.random.PRNGKey(0), (300, 4, 64))
+    a = flash_attn_varlen_func(x, x, x, cu, cu, 200, 200, causal=True)
+    b = flash_attn_varlen_func(x, x, x, cu, cu, 200, 200, causal=True,
+                               scheduler_metadata=md)
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_combine_three_way_matches_pairwise():
+    """Combining three partials at once == merging them two at a time."""
+    o = jax.random.normal(jax.random.PRNGKey(2), (3, 5, 8))
+    lse = jax.random.normal(jax.random.PRNGKey(3), (3, 5))
+    out3, lse3 = flash_attn_combine(o, lse)
+    out2, lse2 = flash_attn_combine(o[:2], lse[:2])
+    out, l = flash_attn_combine(jnp.stack([out2, o[2]]),
+                                jnp.stack([lse2, lse[2]]))
+    np.testing.assert_allclose(np.asarray(out3), np.asarray(out), atol=1e-6)
+    np.testing.assert_allclose(np.asarray(lse3), np.asarray(l), atol=1e-6)

@@ -135,24 +135,28 @@ def test_model_fp8_kv_cache_decode(scale):
         assert rel < 0.15, (i, rel)
 
 
-def test_fp8_fast_cast_exact():
-    """The bit-twiddle fp8(e4m3)->bf16 used inside the quantized-cache
-    kernels (kernels/fp8_cast.py) is bitwise-equal to astype for every
-    finite e4m3 value (incl. +-0 and denormals)."""
-    from flash_attn_tpu.kernels.fp8_cast import fp8e4m3_to_bf16
-
-    u = np.arange(256, dtype=np.uint8)
-    x = jax.lax.bitcast_convert_type(jnp.asarray(u), jnp.float8_e4m3fn)
-    ref = np.asarray(x.astype(jnp.bfloat16), np.float32)
-    got = np.asarray(fp8e4m3_to_bf16(x), np.float32)
-    finite = np.isfinite(ref)
-    assert finite.sum() == 254
-    np.testing.assert_array_equal(got[finite], ref[finite])
+def test_fp8_cache_dequant_matches_bf16_cache():
+    """Decode against an e4m3 cache converts it natively (astype) inside
+    the attention: bitwise the same as the cache converted up front."""
+    b, h, h_k, d, s_max = 2, 4, 2, 64, 128
+    kc = jax.random.normal(jax.random.PRNGKey(1), (b, h_k, s_max, d)
+                           ).astype(FP8)
+    vc = jax.random.normal(jax.random.PRNGKey(2), (b, h_k, s_max, d)
+                           ).astype(FP8)
+    q = jax.random.normal(jax.random.PRNGKey(3), (b, 1, h, d), jnp.bfloat16)
+    kd = jnp.full((b, h_k), 0.7, jnp.float32)
+    lens = jnp.array([100, 17], jnp.int32)
+    kw = dict(cache_seqlens=lens, k_descale=kd, v_descale=kd)
+    out8 = flash_attn_with_kvcache(q, kc, vc, **kw)
+    out16 = flash_attn_with_kvcache(q, kc.astype(jnp.bfloat16),
+                                    vc.astype(jnp.bfloat16), **kw)
+    np.testing.assert_array_equal(np.asarray(out8, np.float32),
+                                  np.asarray(out16, np.float32))
 
 
 def test_fp8_qv_fwd():
-    """fp8 descale x MLA qv crossing: the fp8 path keeps the in-kernel
-    qv term (the concat rewrite covers only the unquantized path)."""
+    """fp8 descale x MLA qv crossing: the fp8 path keeps a separate qv
+    term (the concat rewrite covers only the unquantized path)."""
     b, s, h, d, dv = 1, 256, 4, 64, 32
     FP8 = jnp.float8_e4m3fn
     ks = jax.random.split(jax.random.PRNGKey(7), 4)
@@ -175,8 +179,8 @@ def test_fp8_qv_fwd():
 
 
 def test_fp8_qv_decode():
-    """fp8 cache x qv crossing in the decode kernel: the qv score term
-    carries qd*vd (not qd*kd) — pinned after the round-3 descale fix."""
+    """fp8 cache x qv crossing in decode: the qv score term carries
+    qd*vd (not qd*kd)."""
     from flash_attn_tpu import flash_attn_with_kvcache
 
     b, h, h_k, d, dv, s_max = 2, 4, 4, 64, 32, 256

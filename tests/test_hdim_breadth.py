@@ -1,6 +1,6 @@
 """Kernel-config breadth: the reference ships head dims
 {32,64,96,128,192,256} x {fp16,bf16} (csrc/flash_attn/src/generate_kernels.py)
-— this module pins the same envelope on the TPU kernels, fwd + bwd, plus
+— this module pins the same envelope through the public API, fwd + bwd, plus
 feature crossings (dropout x local x GQA x alibi) and odd/cross seqlens."""
 
 import jax
@@ -67,8 +67,8 @@ def test_hdim_bwd(d, causal):
 @pytest.mark.parametrize("d", [64, 128])
 def test_fp16_fwd_bwd(d):
     """fp16 story: kernels accept float16 end-to-end (reference ships fp16 +
-    bf16 instantiations; on TPU fp16 runs through the same fp32-accumulating
-    MXU path)."""
+    bf16 instantiations; fp16 runs through the same fp32-accumulating
+    paths)."""
     key = jax.random.PRNGKey(d)
     b, h, sq, sk = 2, 3, 192, 320
     q, k, v = _make(key, b, sq, sk, h, h, d, dtype=jnp.float16)

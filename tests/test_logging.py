@@ -27,21 +27,26 @@ def test_level_parsing():
 
 
 def test_kernel_launch_logged_at_level2(caplog):
+    """The seam logs which implementation each specialization chose."""
+    from flash_attn_tpu import flash_attn_func
     fa_logging.set_log_level(2)
     with caplog.at_level(logging.INFO, logger="flash_attn_tpu"):
-        from flash_attn_tpu.kernels.flash_fwd import flash_attention_fwd
-        q = jnp.zeros((1, 2, 256, 64), jnp.float32)
-        flash_attention_fwd(q, q, q, causal=True, interpret=True)
+        q = jnp.zeros((1, 256, 2, 64), jnp.float32)
+        flash_attn_func(q, q, q, causal=True)
+        flash_attn_func(q, q, q, causal=True, softcap=5.0)
     msgs = [r.message for r in caplog.records]
-    assert any("launch flash_fwd" in m and "grid=" in m for m in msgs), msgs
+    assert any("launch attention" in m and "impl=xla" in m
+               for m in msgs), msgs
+    assert any("impl=jnp" in m and "features=softcap" in m
+               for m in msgs), msgs
 
 
 def test_kernel_launch_silent_at_level0(caplog):
+    from flash_attn_tpu import flash_attn_func
     fa_logging.set_log_level(0)
     with caplog.at_level(logging.DEBUG, logger="flash_attn_tpu"):
-        from flash_attn_tpu.kernels.flash_fwd import flash_attention_fwd
-        q = jnp.zeros((1, 2, 128, 64), jnp.float32)
-        flash_attention_fwd(q, q, q, interpret=True)
+        q = jnp.zeros((1, 128, 2, 64), jnp.float32)
+        flash_attn_func(q, q, q)
     assert not [r for r in caplog.records if "launch" in r.message]
 
 

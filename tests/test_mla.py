@@ -167,9 +167,8 @@ def test_qv_term_kvcache_decode():
 
 
 def test_qv_softcap_crossing():
-    """softcap x qv: the cap applies to the FULL score q.k + qv.v
-    (round-3 kernel-order fix, pinned via the direct kernel path)."""
-    from flash_attn_tpu.kernels.flash_fwd import flash_attention_fwd
+    """softcap x qv: the cap applies to the FULL score q.k + qv.v."""
+    from flash_attn_tpu import flash_attn_func
 
     b, h, s, d, dv = 1, 2, 256, 64, 32
     ks = jax.random.split(jax.random.PRNGKey(17), 4)
@@ -177,9 +176,9 @@ def test_qv_softcap_crossing():
     k = jax.random.normal(ks[1], (b, h, s, d)) * 3
     v = jax.random.normal(ks[2], (b, h, s, dv))
     qv = jax.random.normal(ks[3], (b, h, s, dv)) * 3
-    out, _ = flash_attention_fwd(q, k, v, qv=qv, causal=True, softcap=10.0,
-                                 interpret=True)
     tr = lambda x: jnp.swapaxes(x, 1, 2)
+    out = tr(flash_attn_func(tr(q), tr(k), tr(v), qv=tr(qv), causal=True,
+                             softcap=10.0))
     ref, _ = attention_ref(tr(q), tr(k), tr(v), qv=tr(qv), causal=True,
                            softcap=10.0)
     np.testing.assert_allclose(np.asarray(tr(out), np.float32),

@@ -1,7 +1,7 @@
 """Paged-KV varlen prefill (flash_attn_varlen_func(block_table=...)).
 
-Contract (VERDICT r1 item 3): varlen chunked prefill against a paged cache
-must equal full attention over the same tokens. Reference path:
+Contract: varlen chunked prefill against a paged cache must equal full
+attention over the same tokens. Reference path:
 hopper/flash_api.cpp:672 paged KV in the main fwd + paged_kv.h:18;
 FA4 flash_attn/cute/interface.py:3419 (varlen + page_table).
 """
@@ -12,9 +12,20 @@ import numpy as np
 import pytest
 
 from flash_attn_tpu import flash_attn_func, flash_attn_varlen_func
-from flash_attn_tpu.kernels.flash_paged_prefill import (
-    flash_attention_paged_prefill,
-)
+
+
+def _padded_paged_prefill(q, kp, vp, seqused_q, seqlens_k, table):
+    """(b, sq, h, d) queries padded per row against a paged cache, through
+    the packed entry point in its padded-flat layout (the serving engine's
+    prefix-cached prefill): returns out (b, sq, h, d), lse (b, h, sq)."""
+    b, sq, h, d = q.shape
+    cu = jnp.arange(b + 1, dtype=jnp.int32) * sq
+    out, lse = flash_attn_varlen_func(
+        q.reshape(b * sq, h, d), kp, vp, cu, None, sq,
+        table.shape[1] * kp.shape[2], causal=True, block_table=table,
+        seqused_q=seqused_q, seqused_k=seqlens_k, return_attn_probs=True)
+    return (out.reshape(b, sq, h, -1),
+            jnp.swapaxes(lse.reshape(h, b, sq), 0, 1))
 
 
 def _scatter_pages(kv, lens, page_size, table):
@@ -168,7 +179,8 @@ def test_paged_prefill_fp8_descale():
 
 
 def test_paged_prefill_dense_entrypoint_lse():
-    """The dense kernel's lse matches the dense fwd kernel's lse."""
+    """The padded-flat paged prefill's lse matches the dense entry
+    point's lse."""
     b, h, h_k, d = 2, 4, 2, 64
     page_size, ppseq = 128, 2
     sk = np.array([256, 192])
@@ -188,9 +200,9 @@ def test_paged_prefill_dense_entrypoint_lse():
     q = jax.random.normal(kq, (b, sq_max, h, d),
                           jnp.float32).astype(jnp.bfloat16)
 
-    out, lse = flash_attention_paged_prefill(
+    out, lse = _padded_paged_prefill(
         q, kp, vp, jnp.asarray(sq, jnp.int32), jnp.asarray(sk, jnp.int32),
-        jnp.asarray(table), causal=True, interpret=True)
+        jnp.asarray(table))
 
     for s in range(b):
         n = int(sq[s])
@@ -208,7 +220,7 @@ def test_paged_prefill_dense_entrypoint_lse():
 
 @pytest.mark.parametrize("page_size", [16, 64])
 def test_paged_prefill_small_pages(page_size):
-    """Prefill against small pages (tile spans several pages, round-3)."""
+    """Prefill against small pages (a query attends across many pages)."""
     key = jax.random.PRNGKey(19)
     b, h, h_k, d = 2, 4, 2, 64
     pages_per_seq = 256 // page_size
@@ -225,10 +237,7 @@ def test_paged_prefill_small_pages(page_size):
     seqused_q = jnp.array([sq, sq - 7], jnp.int32)
     seqlens_k = jnp.array([s_ctx, s_ctx - 31], jnp.int32)
 
-    from flash_attn_tpu.kernels.flash_paged_prefill import (
-        flash_attention_paged_prefill)
-    out, lse = flash_attention_paged_prefill(
-        q, kp, vp, seqused_q, seqlens_k, table, causal=True, interpret=True)
+    out, lse = _padded_paged_prefill(q, kp, vp, seqused_q, seqlens_k, table)
 
     s_max = page_size * pages_per_seq
     k_lin = (kp[table].reshape(b, pages_per_seq, h_k, page_size, d)

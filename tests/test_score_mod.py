@@ -8,8 +8,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flash_attn_tpu.kernels.flash_fwd import flash_attention_fwd
+from flash_attn_tpu import flash_attn_func
 from flash_attn_tpu.utils.testing import attention_ref
+
+
+def flash_attention_fwd(q, k, v, **kw):
+    """(b, h, s, d) view of the public entry point -> (out, lse)."""
+    tr = lambda x: jnp.swapaxes(x, 1, 2)
+    out, lse, _ = flash_attn_func(tr(q), tr(k), tr(v),
+                                  return_attn_probs=True, **kw)
+    return tr(out), lse
 
 
 def _qkv(key, b, h, s, d):
@@ -26,7 +34,7 @@ def test_score_mod_relative_bias():
     def score_mod(scores, bi, hi, rows, cols):
         return scores - 0.01 * jnp.abs(rows - cols).astype(jnp.float32)
 
-    out, _ = flash_attention_fwd(q, k, v, score_mod=score_mod, interpret=True)
+    out, _ = flash_attention_fwd(q, k, v, score_mod=score_mod)
 
     rows = np.arange(s)[:, None]
     cols = np.arange(s)[None, :]
@@ -48,7 +56,7 @@ def test_mask_mod_checkerboard():
     def mask_mod(bi, hi, rows, cols):
         return (rows + cols) % 2 == 0
 
-    out, _ = flash_attention_fwd(q, k, v, mask_mod=mask_mod, interpret=True)
+    out, _ = flash_attention_fwd(q, k, v, mask_mod=mask_mod)
 
     scale = 1.0 / math.sqrt(d)
     sc = jnp.einsum("bhqd,bhkd->bhqk", q, k) * scale
@@ -68,8 +76,7 @@ def test_score_mod_with_causal():
     def score_mod(scores, bi, hi, rows, cols):
         return jnp.tanh(scores)
 
-    out, _ = flash_attention_fwd(q, k, v, causal=True, score_mod=score_mod,
-                                 interpret=True)
+    out, _ = flash_attention_fwd(q, k, v, causal=True, score_mod=score_mod)
     scale = 1.0 / math.sqrt(d)
     sc = jnp.tanh(jnp.einsum("bhqd,bhkd->bhqk", q, k) * scale)
     mask = np.tril(np.ones((s, s), bool))
@@ -148,8 +155,7 @@ def test_score_mod_aux_tensors_fwd():
 @pytest.mark.parametrize("causal", [False, True])
 def test_score_mod_aux_tensors_grad(causal):
     """Learnable-bias score_mod trains end-to-end: grads flow to the aux
-    table and match a dense autodiff reference (deterministic fixed-order
-    accumulation in the fused backward)."""
+    table and match a dense autodiff reference."""
     from flash_attn_tpu import flash_attn_func
 
     b, h, s, d = 2, 2, 128, 64
@@ -206,7 +212,7 @@ def test_mask_mod_aux_tensors():
         return doc_ids[bi][rows] == doc_ids[bi][cols]
 
     out, _ = flash_attention_fwd(q, k, v, mask_mod=mask_mod,
-                                 aux_tensors=(doc,), interpret=True)
+                                 aux_tensors=(doc,))
     dnp = np.asarray(doc)
     mask = dnp[:, :, None] == dnp[:, None, :]   # (b, s, s)
     qb, kb, vb = (jnp.swapaxes(x, 1, 2) for x in (q, k, v))

@@ -1,20 +1,15 @@
-"""Packed persistent paged-prefill kernel vs the dense-padded path.
-
-Both route the same math (chunked prefill of packed query chunks against
-the paged cache, bottom-right causal); the dense path is itself tested
-against dense references in test_paged_prefill.py, so agreement here
-transfers. float32 agreement is ~1e-6 (same accumulation structure).
-"""
+"""Packed chunked prefill against a paged cache
+(``flash_attn_varlen_func(block_table=...)``) vs, for each sequence, the
+golden reference over its pages laid end to end (bottom-right causal),
+and its lse vs the dense entry point's."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from flash_attn_tpu.interface import _varlen_paged_fwd_dense
-from flash_attn_tpu.kernels.flash_varlen_paged import (
-    flash_attention_varlen_paged_fwd,
-)
+from flash_attn_tpu import flash_attn_func, flash_attn_varlen_func
+from flash_attn_tpu.utils.testing import attention_ref
 
 rng = np.random.default_rng(0)
 
@@ -75,37 +70,58 @@ def test_packed_matches_dense(case):
         kd = jnp.asarray(rng.random((b, hk)) + 0.5, jnp.float32)
         vd = jnp.asarray(rng.random((b, hk)) + 0.5, jnp.float32)
     mxq, mxk = max(lens_q), max(lens_k)
-    ref = _varlen_paged_fwd_dense(
-        q, kp, vp, cu, mxq, table, seqk, softmax_scale=None, causal=causal,
-        window_size=window, softcap=softcap, q_descale=qd, k_descale=kd,
-        v_descale=vd, return_attn_probs=True, learnable_sink=snk)
-    o, l = flash_attention_varlen_paged_fwd(
-        q, kp, vp, cu, mxq, seqk, table, q_descale=qd, k_descale=kd,
-        v_descale=vd, learnable_sink=snk, causal=causal, window_size=window,
-        softcap=softcap, block_q=128, block_k=case.get("bk", 128),
-        interpret=True)
-    do = float(jnp.max(jnp.abs(o - ref[0])))
-    rl = jnp.where(jnp.isfinite(ref[1]), ref[1], 0.0)
-    l0 = jnp.where(jnp.isfinite(l), l, 0.0)
-    dl = float(jnp.max(jnp.abs(l0 - rl)))
+    o, l = flash_attn_varlen_func(
+        q, kp, vp, cu, None, mxq, mxk, seqused_k=seqk, block_table=table,
+        k_descale=kd, v_descale=vd, learnable_sink=snk, causal=causal,
+        window_size=window, softcap=softcap, return_attn_probs=True)
     tol = case.get("tol", 2e-5)
-    assert do < tol and dl < tol, (do, dl)
+    for i, (lq, lk) in enumerate(zip(lens_q, lens_k)):
+        k_i, v_i = _lay_out(kp, table[i], lk), _lay_out(vp, table[i], lk)
+        q_i = q[int(cu[i]):int(cu[i]) + lq][None]
+        sl = None if kd is None else slice(i, i + 1)
+        ref, _ = attention_ref(
+            q_i, k_i, v_i, causal=causal, window_size=window,
+            softcap=softcap, learnable_sink=snk,
+            k_descale=None if kd is None else kd[sl],
+            v_descale=None if vd is None else vd[sl])
+        got = o[int(cu[i]):int(cu[i]) + lq][None]
+        err = float(jnp.max(jnp.abs(got.astype(jnp.float32) - ref)))
+        assert err < tol, (i, err)
+        if kd is None:
+            _, lse_d, _ = flash_attn_func(
+                q_i, k_i, v_i, causal=causal, window_size=window,
+                softcap=softcap, learnable_sink=snk, return_attn_probs=True)
+            got_l = l[:, int(cu[i]):int(cu[i]) + lq]
+            fin = np.isfinite(np.asarray(lse_d[0]))
+            np.testing.assert_array_equal(np.isfinite(np.asarray(got_l)),
+                                          fin)
+            np.testing.assert_allclose(np.asarray(got_l)[fin],
+                                       np.asarray(lse_d[0])[fin], atol=1e-4)
+
+
+def _lay_out(pool, row, length):
+    """One row's pages end to end: (1, length, h_k, d) float32."""
+    pages = pool[row].astype(jnp.float32)          # (P, h_k, ps, d)
+    lin = jnp.swapaxes(pages, 1, 2).reshape(-1, pool.shape[1],
+                                            pool.shape[3])
+    return lin[:length][None]
 
 
 def test_packed_qv_concat_mla():
-    """MLA absorbed prefill: q||qv against K||V pages via kv_concat_dim."""
+    """MLA absorbed prefill: q||qv against K||V pages."""
     import math
 
     lens_q, lens_k = [100, 200], [150, 250]
     h, hk, d, dv, page = 4, 2, 128, 128, 64
     q, kp, vp, cu, table, seqk = _setup(lens_q, lens_k, h, hk, d, page)
     qv = jnp.asarray(rng.standard_normal((q.shape[0], h, dv)), jnp.float32)
-    ref = _varlen_paged_fwd_dense(
-        q, kp, vp, cu, 200, table, seqk, softmax_scale=None, causal=True,
-        window_size=(None, None), softcap=0.0, q_descale=None,
-        k_descale=None, v_descale=None, return_attn_probs=False, qv=qv)
-    o, _ = flash_attention_varlen_paged_fwd(
-        jnp.concatenate([q, qv], -1), kp, vp, cu, 200, seqk, table,
-        causal=True, softmax_scale=1.0 / math.sqrt(d + dv),
-        kv_concat_dim=d, block_q=128, block_k=128, interpret=True)
-    assert float(jnp.max(jnp.abs(o - ref))) < 2e-5
+    o = flash_attn_varlen_func(q, kp, vp, cu, None, 200, 250, qv=qv,
+                               seqused_k=seqk, block_table=table,
+                               causal=True)
+    for i, (lq, lk) in enumerate(zip(lens_q, lens_k)):
+        sl = slice(int(cu[i]), int(cu[i]) + lq)
+        ref, _ = attention_ref(q[sl][None], _lay_out(kp, table[i], lk),
+                               _lay_out(vp, table[i], lk), qv=qv[sl][None],
+                               causal=True,
+                               softmax_scale=1.0 / math.sqrt(d + dv))
+        assert float(jnp.max(jnp.abs(o[sl][None] - ref))) < 2e-5

@@ -3,17 +3,18 @@
 # tools/ci/run_fa4_ci.py). Run from the repo root.
 set -e
 case "${1:-smoke}" in
-  smoke)   # every kernel family + subsystem, ~6 min on 4 cores
-    python -m pytest tests/ -q -m "not slow" -n 4 ;;
-  full)    # + breadth sweeps and heavy scenarios, ~9-11 min
-    python -m pytest tests/ -q -n 4 ;;
-  bench)   # one JSON line of hardware numbers (real TPU required)
+  smoke)   # every subsystem on the CPU
+    JAX_PLATFORMS=cpu python -m pytest tests/ -q -m "not slow" -n 4 ;;
+  full)    # + breadth sweeps and heavy scenarios
+    JAX_PLATFORMS=cpu python -m pytest tests/ -q -n 4 ;;
+  chip)    # the main paths on one GPU (exits non-zero without one)
+    python chip_smoke.py ;;
+  gpu-tests)  # the gpu-marked tests, on a GPU
+    FA_TEST_PLATFORM=gpu python -m pytest tests/ -q -m gpu ;;
+  bench)   # one JSON line of results on one GPU
     python bench.py ;;
-  engine-smoke)  # continuous-batching engine AT THE BENCH SHAPE on the
-    # real chip — hard-fails on any shape-level error (OOM etc.), the
-    # round-4 failure class that bench.py's best-effort handlers swallow
-    python -c "import bench; r = bench.bench_engine(n_requests=24); print('engine smoke ok:', r)" ;;
   multichip)  # 8-virtual-device sharding dryrun (CPU)
-    python -c "import __graft_entry__ as g; g.dryrun_multichip(8); print('ok')" ;;
-  *) echo "usage: tools/ci.sh [smoke|full|bench|multichip]"; exit 2 ;;
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+      python -c "import __graft_entry__ as g; g.dryrun_multichip(8); print('ok')" ;;
+  *) echo "usage: tools/ci.sh [smoke|full|chip|gpu-tests|bench|multichip]"; exit 2 ;;
 esac
