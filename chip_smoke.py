@@ -18,8 +18,12 @@ Phases (one process; the first failure exits non-zero):
      state) on one fixed batch: finite losses, the last below the first.
   4. serve: the InferenceEngine (paged pool of 256-token pages, 64 slots,
      prefix caching) finishes 16 requests of 512 + 32 tokens, with bf16
-     and with int8 pages; prefill logits and greedy tokens agree with a
-     full-sequence forward without cache.
+     and with int8 pages; prefill logits and the engine's greedy tokens
+     agree with a full-sequence forward without cache, and a control
+     fault (another request's pages or forward) is seen.
+  --multi (four cards): the 913M DP2xTP2 train step, ring attention, and
+     TP=4 prefill, decode and sharded paged decode, each against one
+     card.
 The last line of standard output is one JSON object:
 {"ok": true, "device": {"platform": ..., "kind": ..., "count": ...}}.
 """
@@ -37,7 +41,9 @@ import numpy as np
 # relative, in another order than the full forward (measured 0.035 at
 # max|ref| 4.5 on one H100). int8 pages add K/V steps of 1/32. A greedy
 # token may differ from the reference argmax only within the same
-# tolerance of the maximum.
+# tolerance of the maximum. Each check has a control that must fail it: a
+# prefill chunk reading another request's pages, and greedy tokens
+# against another request's forward.
 LOGIT_RTOL = {"bfloat16": 0.02, "int8": 0.05}
 
 
@@ -46,8 +52,7 @@ def logit_tol(kind, ref):
 LOSS_DROP = 0.1        # nats the 10th loss must sit below the 1st
 TRAIN_SHAPE = (4, 2048)            # (batch, seq) of the train phases
 RING_SHAPE = (1, 16, 16384, 128)   # (b, h, s, d) of the ring check
-MULTI_LAYERS = 4   # the four-card phase cuts the 913M's depth (16 -> 4),
-                   # widths unchanged: compile time, not memory, is its cost
+RING_LONG = 65536                  # ring timing only: 16384 tokens a card
 
 
 def log(msg):
@@ -217,10 +222,13 @@ def _reference_logits(model, params, seqs, first):
         :, first:])(params, jnp.asarray(np.stack(seqs)))
 
 
-def _prefill_logits(model, params, prompt, prefix_len, page):
+def _prefill_logits(model, params, prompt, prefix_len, page,
+                    prefix_from=None):
     """Last-position logits of ``prompt`` through the serving prefill path
     on a paged cache: the first ``prefix_len`` tokens prefilled, then the
-    rest as a prefix-cached chunk (the paged varlen path)."""
+    rest as a prefix-cached chunk (the paged varlen path). With
+    ``prefix_from``, the cached pages hold that prompt's prefix instead: a
+    chunk reading another request's pages, the fault the check must see."""
     import jax
     import jax.numpy as jnp
 
@@ -229,12 +237,12 @@ def _prefill_logits(model, params, prompt, prefix_len, page):
     one = lambda x: jnp.asarray([x], jnp.int32)
 
     @jax.jit
-    def run(params, ids):
+    def run(params, prefix_ids, ids):
         kw = dict(mode="prefill", mutable=["cache"], block_table=table,
                   slot_ids=one(0))
         vars_ = {"params": params}
         if prefix_len:
-            _, st = model.apply(vars_, ids[:, :prefix_len],
+            _, st = model.apply(vars_, prefix_ids[:, :prefix_len],
                                 prefill_lengths=one(prefix_len),
                                 logits_positions=one(prefix_len - 1), **kw)
             vars_ = {"params": params, "cache": st["cache"]}
@@ -245,7 +253,9 @@ def _prefill_logits(model, params, prompt, prefix_len, page):
                                 **kw)
         return logits[0, 0]
 
-    return run(params, jnp.asarray(prompt)[None])
+    ids = jnp.asarray(prompt)[None]
+    src = ids if prefix_from is None else jnp.asarray(prefix_from)[None]
+    return run(params, src, ids)
 
 
 def phase_serve(kv_dtype):
@@ -292,102 +302,103 @@ def phase_serve(kv_dtype):
     ref = np.asarray(_reference_logits(model, params, seqs, prompt_len - 1))
 
     # prefill logits through the serving path, two requests: the second
-    # rides the prefix-cached paged prefill
-    for i, prefix in ((0, 0), (1, page)):
-        got = np.asarray(_prefill_logits(model, params, prompts[i], prefix,
-                                         page))
+    # rides the prefix-cached paged prefill. Control: that chunk reading
+    # another request's pages must miss the reference by more than the
+    # tolerance, or the check could not see such a fault.
+    for i, prefix, other in ((0, 0, None), (1, page, None), (1, page, 2)):
+        got = np.asarray(_prefill_logits(
+            model, params, prompts[i], prefix, page,
+            prefix_from=None if other is None else prompts[other]))
         row = ref[i, 0]
         err = float(np.max(np.abs(got - row)))
         tol = logit_tol(name, row)
+        what = ("" if other is None else
+                f", control: prefix pages of request {other}")
         log(f"serve {name}: request {i} first-token logits (prefix "
-            f"{prefix}) max|diff| {err:.4f} (tol {tol:.4f}, max|ref| "
+            f"{prefix}{what}) max|diff| {err:.4f} (tol {tol:.4f}, max|ref| "
             f"{float(np.max(np.abs(row))):.3f})")
-        if err > tol:
-            raise AssertionError(f"prefill logits differ by {err}")
+        if (err > tol) != (other is not None):
+            raise AssertionError(
+                f"prefill logits differ by {err}" if other is None else
+                f"control within tolerance ({err}): the check is blind")
 
-    # greedy tokens vs the full forward over each request's own output
-    worst, differ = 0.0, 0
-    for i in range(n_req):
-        for t in range(16):
-            row = ref[i, t]
-            gap = float(row.max() - row[out[i][t]])
-            tol = logit_tol(name, row)
-            worst = max(worst, gap / tol)
-            differ += gap > 0
+    # greedy tokens of the engine's own compiled programs vs the full
+    # forward over each request's output; control: against another
+    # request's forward, the tokens must fall outside the tolerance
+    def worst_gap(refs):
+        worst, differ = 0.0, 0
+        for i in range(n_req):
+            for t in range(16):
+                row = refs[i, t]
+                gap = float(row.max() - row[out[i][t]])
+                worst = max(worst, gap / logit_tol(name, row))
+                differ += gap > 0
+        return worst, differ
+
+    worst, differ = worst_gap(ref)
+    control, _ = worst_gap(ref[(np.arange(n_req) + 2) % n_req])
     log(f"serve {name}: greedy tokens vs full forward: {differ}/{16 * n_req}"
         f" differ from the reference argmax; largest logit gap "
-        f"{worst:.3f} of its tolerance")
+        f"{worst:.3f} of its tolerance (control, each request against "
+        f"another's forward: {control:.1f})")
     if worst > 1.0:
         raise AssertionError(f"greedy token off by {worst} x tolerance")
+    if control <= 1.0:
+        raise AssertionError("greedy control within tolerance: the check "
+                             "is blind")
 
 
 # --------------------------------------------------------------------------
-def phase_multi():
-    """Four cards, one process: DPxTP train step, ring attention, and
-    TP-sharded serving, each against its one-card counterpart (the model
-    at the 913M's widths, MULTI_LAYERS deep)."""
+def _timed(fn, *args, reps=3):
+    """(result of the first call, its seconds with compile, median
+    seconds of ``reps`` more calls); each call waits for its result."""
+    import jax
+
+    t0 = time.perf_counter()
+    out = jax.block_until_ready(fn(*args))
+    first = time.perf_counter() - t0
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        jax.block_until_ready(fn(*args))
+        times.append(time.perf_counter() - t0)
+    return out, first, statistics.median(times)
+
+
+def _multi_ring():
+    """Ring attention on a seq=4 mesh, forward and gradient, against one
+    card's attention; then its time against one card's, and its time at
+    16384 tokens a card, where materialized partials would need 16 GiB
+    score matrices."""
     import jax
     import jax.numpy as jnp
-    from jax.sharding import NamedSharding, PartitionSpec as P
 
     from flash_attn_tpu import flash_attn_func
     from flash_attn_tpu.parallel.attention import ring_attention
     from flash_attn_tpu.parallel.mesh import make_mesh
-    from flash_attn_tpu.parallel.sharding import gpt_param_sharding
-    from flash_attn_tpu.training.trainer import TrainConfig, Trainer
     from flash_attn_tpu.utils.testing import attention_ref
 
-    assert len(jax.devices()) == 4, jax.devices()
-
-    # DP2 x TP2 train step vs one card, same params and batch
-    batch, seqlen = TRAIN_SHAPE
-    ids = jax.random.randint(jax.random.PRNGKey(0), (batch, seqlen), 0,
-                             gpt_913m().vocab_size)
-    labels = jnp.roll(ids, -1, axis=1)
-    losses = {}
-    for dp, tp in ((1, 1), (2, 2)):
-        cfg = TrainConfig(model=gpt_913m(MULTI_LAYERS), batch_size=batch,
-                          seqlen=seqlen,
-                          warmup_steps=1, total_steps=10, zero1=dp > 1,
-                          data_parallel=dp, model_parallel=tp,
-                          log_every=10**9, opt_state_dtype="bfloat16")
-        tr = Trainer(cfg)
-        step = []
-        with jax.set_mesh(tr.mesh):
-            for _ in range(3):
-                (tr.params, tr.opt_state, loss, _g, tr.ema_params,
-                 tr.scaler) = tr._step(tr.params, tr.opt_state, ids, labels,
-                                       tr.ema_params, tr.scaler)
-                step.append(float(loss))
-        losses[(dp, tp)] = step
-        del tr
-    one, four = losses[(1, 1)], losses[(2, 2)]
-    diff = max(abs(a - b) for a, b in zip(one, four))
-    log(f"multi train DP2xTP2 ({MULTI_LAYERS} layers) losses {four} vs "
-        f"one card {one}: max|diff| "
-        f"{diff:.4f} (tol 0.02: bf16 sums in another order)")
-    if diff > 0.02:
-        raise AssertionError("DPxTP losses differ from one card")
-
-    # ring attention at seq 16384 on a seq=4 mesh, fwd + grad
     b, h, s, d = RING_SHAPE
-    ks = jax.random.split(jax.random.PRNGKey(3), 4)
-    q, k, v, g = (jax.random.normal(kk, (b, h, s, d), jnp.bfloat16)
-                  for kk in ks)
     mesh = make_mesh(data=1, model=1, seq=4)
     ring = ring_attention(mesh, causal=True)
     tr_ = lambda x: jnp.swapaxes(x, 1, 2)
     one_card = lambda q, k, v: tr_(flash_attn_func(tr_(q), tr_(k), tr_(v),
                                                    causal=True))
+    grad_of = lambda f: jax.jit(jax.grad(lambda q, k, v, g: (f(
+        q, k, v).astype(jnp.float32) * g).sum(), argnums=(0, 1, 2)))
+
+    def inputs(s, key):
+        ks = jax.random.split(jax.random.PRNGKey(key), 4)
+        return [jax.random.normal(kk, (b, h, s, d), jnp.bfloat16)
+                for kk in ks]
+
+    q, k, v, g = inputs(s, 3)
     with jax.set_mesh(mesh):
-        out = ring(q, k, v)
-        dring = jax.jit(jax.grad(lambda q, k, v: (ring(q, k, v).astype(
-            jnp.float32) * g).sum(), argnums=(0, 1, 2)))(q, k, v)
+        out, t_fwd, _ = _timed(ring, q, k, v)
+        dring, t_first, t_ring = _timed(grad_of(ring), q, k, v, g)
     dev0 = jax.devices()[0]
     q0, k0, v0, g0 = (jax.device_put(x, dev0) for x in (q, k, v, g))
-    out1 = jax.jit(one_card)(q0, k0, v0)
-    d1 = jax.jit(jax.grad(lambda q, k, v: (one_card(q, k, v).astype(
-        jnp.float32) * g0).sum(), argnums=(0, 1, 2)))(q0, k0, v0)
+    d1, _, t_one = _timed(grad_of(one_card), q0, k0, v0, g0)
     # golden reference on two heads (heads are independent)
     sl = (slice(None), slice(0, 2))
     with jax.default_matmul_precision("highest"):
@@ -400,9 +411,8 @@ def phase_multi():
                                 .astype(jnp.float32) - ref)))
     bound = 2 * float(jnp.max(jnp.abs(ref_lp.astype(jnp.float32) - ref))) \
         + 1e-5
-    err1 = float(jnp.max(jnp.abs(out1[sl].astype(jnp.float32) - ref)))
     log(f"multi ring attention s{s} fwd: err {err:.3e} bound {bound:.3e} "
-        f"(one card err {err1:.3e})")
+        f"({t_fwd:.1f} s with compile)")
     if err > bound:
         raise AssertionError("ring attention forward outside the bound")
     for name, a, r in zip(("dq", "dk", "dv"), dring, d1):
@@ -413,12 +423,95 @@ def phase_multi():
             f"max|one card| = {rel:.3e} (tol 2e-2)")
         if rel > 2e-2:
             raise AssertionError(f"ring {name} differs from one card")
+    log(f"multi ring attention s{s} fwd+bwd: 4 cards {t_ring * 1e3:.2f} ms "
+        f"(first call {t_first:.1f} s), one card cuDNN {t_one * 1e3:.2f} ms")
 
-    # TP=4 serving: prefill logits and a decode step vs one card
-    page, prompt_len = 256, 512
-    cfg = gpt_913m(MULTI_LAYERS, max_decode_seqlen=prompt_len + 32,
-                   paged_kv_num_pages=8 * 3 + 1, paged_kv_page_size=page)
+    q, k, v, g = inputs(RING_LONG, 5)
+    with jax.set_mesh(mesh):
+        grads, t_first, t_long = _timed(grad_of(ring), q, k, v, g)
+    finite = all(bool(jnp.all(jnp.isfinite(x))) for x in grads)
+    peak = max((dv.memory_stats() or {}).get("peak_bytes_in_use", 0)
+               for dv in jax.devices())
+    log(f"multi ring attention s{RING_LONG} ({RING_LONG // 4} a card) "
+        f"fwd+bwd: {t_long * 1e3:.2f} ms (first call {t_first:.1f} s), "
+        f"gradients finite: {finite}, peak_bytes_in_use {peak / 2**30:.2f} "
+        f"GiB on the fullest card")
+    if not finite:
+        raise AssertionError("ring gradients not finite at the long length")
+
+
+def _multi_sharded_decode():
+    """parallel/decode: int8 paged decode with heads on the model axis and
+    the pool's pages on the seq axis (mesh model=2 x seq=2), against one
+    card's paged decode and the fp32 reference on the dequantized cache."""
+    import jax
+    import jax.numpy as jnp
+
+    from flash_attn_tpu import backend
+    from flash_attn_tpu.parallel.decode import sharded_paged_decode_attention
+    from flash_attn_tpu.parallel.mesh import make_mesh
+    from flash_attn_tpu.utils.testing import attention_ref
+
+    b, h, h_k, d, ps, s_max, seq = 8, 32, 8, 128, 256, 4096, 2
+    cols = s_max // ps
+    cols_local = cols // seq
+    ks = jax.random.split(jax.random.PRNGKey(7), 3)
+    q = jax.random.normal(ks[0], (b, 1, h, d), jnp.bfloat16)
+    kq, vq = (jax.random.randint(kk, (seq * b * cols_local, h_k, ps, d),
+                                 -127, 128, jnp.int32).astype(jnp.int8)
+              for kk in ks[1:])
+    kd = jnp.full((b, h_k), 1 / 64, jnp.float32)
+    vd = jnp.full((b, h_k), 1 / 96, jnp.float32)
+    lens = jnp.asarray(np.random.default_rng(7).integers(
+        s_max // 2, s_max + 1, size=b), jnp.int32)
+    # shard r holds its pages at pool rows r*b*cols_local + local id; the
+    # table holds local ids, the one-card table global ones
+    c = np.arange(cols)
+    local = np.arange(b)[:, None] * cols_local + c[None] % cols_local
+    glob = (c[None] // cols_local) * b * cols_local + local
+    mesh = make_mesh(data=1, model=2, seq=seq)
+    fn = sharded_paged_decode_attention(mesh, page_size=ps)
+    with jax.set_mesh(mesh):
+        out = fn(q, kq, vq, jnp.asarray(local, jnp.int32), lens, kd, vd)
+    dev0 = jax.devices()[0]
+    one = jax.jit(lambda *a: backend.decode_attention(
+        a[0], a[1], a[2], a[4], block_table=a[3], k_descale=a[5],
+        v_descale=a[6], softmax_scale=d ** -0.5)[0])(
+        *(jax.device_put(x, dev0) for x in
+          (q, kq, vq, jnp.asarray(glob, jnp.int32), lens, kd, vd)))
+    lay = lambda pool, sc: (jnp.swapaxes(pool[glob], 2, 3).reshape(
+        b, s_max, h_k, d).astype(jnp.float32) * sc[:, None, :, None])
+    mask = jnp.arange(s_max)[None, :] < lens[:, None]
+    with jax.default_matmul_precision("highest"):
+        ref = attention_ref(q.astype(jnp.float32), lay(kq, kd),
+                            lay(vq, vd), key_padding_mask=mask)[0]
+    ref_lp = attention_ref(q, lay(kq, kd).astype(jnp.bfloat16),
+                           lay(vq, vd).astype(jnp.bfloat16),
+                           key_padding_mask=mask, upcast=False,
+                           reorder_ops=True)[0]
+    errs = [float(jnp.max(jnp.abs(jax.device_put(x, dev0).astype(
+        jnp.float32) - ref))) for x in (out, one)]
+    bound = 2 * float(jnp.max(jnp.abs(ref_lp.astype(jnp.float32) - ref))) \
+        + 1e-5
+    log(f"multi sharded paged decode int8 b{b} ctx{s_max} h{h}/{h_k} "
+        f"(model 2 x seq 2): err {errs[0]:.3e} bound {bound:.3e} (one card "
+        f"err {errs[1]:.3e})")
+    if errs[0] > bound:
+        raise AssertionError("sharded paged decode outside the bound")
+
+
+def _multi_tp_serve():
+    """TP=4 prefill logits and a decode step against one card's."""
+    import jax
+    import jax.numpy as jnp
+
     from flash_attn_tpu.models.gpt import GPTLMHeadModel
+    from flash_attn_tpu.parallel.mesh import make_mesh
+    from flash_attn_tpu.parallel.sharding import gpt_param_sharding
+
+    page, prompt_len = 256, 512
+    cfg = gpt_913m(max_decode_seqlen=prompt_len + 32,
+                   paged_kv_num_pages=8 * 3 + 1, paged_kv_page_size=page)
     model = GPTLMHeadModel(cfg)
     params = jax.jit(model.init)(jax.random.PRNGKey(1),
                                  jnp.zeros((2, 8), jnp.int32))["params"]
@@ -438,13 +531,18 @@ def phase_multi():
                               block_table=table)
         return logits[:, 0], dlog[:, 0]
 
+    dev0 = jax.devices()[0]
     p1 = jax.device_put(params, dev0)
+    t0 = time.perf_counter()
     pre1, dec1 = jax.jit(serve)(p1, jax.device_put(prompts, dev0))
+    t1 = time.perf_counter()
     tp_mesh = make_mesh(data=1, model=4)
     with jax.set_mesh(tp_mesh):
         p4 = jax.tree_util.tree_map(jax.device_put, params,
                                     gpt_param_sharding(params, tp_mesh))
         pre4, dec4 = jax.jit(serve)(p4, prompts)
+    log(f"multi TP=4 serving: one card {t1 - t0:.1f} s, four cards "
+        f"{time.perf_counter() - t1:.1f} s (with compile)")
     for name, a, r in (("prefill", pre4, pre1), ("decode", dec4, dec1)):
         diff = float(jnp.max(jnp.abs(jax.device_put(a, dev0) - r)))
         # bf16 matmuls summed over 4 shards in another order
@@ -453,6 +551,62 @@ def phase_multi():
             f"{diff:.4f} (tol {tol:.4f})")
         if diff > tol:
             raise AssertionError(f"TP=4 {name} logits differ")
+
+
+def _multi_train():
+    """The 913M DP2 x TP2 (ZeRO-1) train step against one card's, on the
+    same initial params and batch, over 3 steps."""
+    import jax
+    import jax.numpy as jnp
+
+    from flash_attn_tpu.training.trainer import TrainConfig, Trainer
+
+    batch, seqlen = TRAIN_SHAPE
+    ids = jax.random.randint(jax.random.PRNGKey(0), (batch, seqlen), 0,
+                             gpt_913m().vocab_size)
+    labels = jnp.roll(ids, -1, axis=1)
+    losses = {}
+    for dp, tp in ((1, 1), (2, 2)):
+        cfg = TrainConfig(model=gpt_913m(), batch_size=batch, seqlen=seqlen,
+                          warmup_steps=1, total_steps=10, zero1=dp > 1,
+                          data_parallel=dp, model_parallel=tp,
+                          log_every=10**9, opt_state_dtype="bfloat16")
+        t0 = time.perf_counter()
+        tr = Trainer(cfg)
+        setup = time.perf_counter() - t0
+        step, times = [], []
+        with jax.set_mesh(tr.mesh):
+            for _ in range(3):
+                t1 = time.perf_counter()
+                (tr.params, tr.opt_state, loss, _g, tr.ema_params,
+                 tr.scaler) = tr._step(tr.params, tr.opt_state, ids, labels,
+                                       tr.ema_params, tr.scaler)
+                step.append(float(loss))
+                times.append(time.perf_counter() - t1)
+        losses[(dp, tp)] = step
+        log(f"multi train DP{dp}xTP{tp}: set-up {setup:.1f} s, first step "
+            f"{times[0]:.1f} s with compile, then {times[-1] * 1e3:.1f} ms")
+        del tr
+    one, four = losses[(1, 1)], losses[(2, 2)]
+    diff = max(abs(a - b) for a, b in zip(one, four))
+    log(f"multi train DP2xTP2 losses {four} vs one card {one}: max|diff| "
+        f"{diff:.4f} (tol 0.02: bf16 sums in another order)")
+    if diff > 0.02:
+        raise AssertionError("DPxTP losses differ from one card")
+
+
+def phase_multi():
+    """Four cards, one process, the 913M at full depth: ring attention,
+    sharded paged decode, TP-sharded serving and the DPxTP train step,
+    each against its one-card counterpart."""
+    import jax
+
+    assert len(jax.devices()) == 4, jax.devices()
+    t0 = time.perf_counter()
+    for part in (_multi_ring, _multi_sharded_decode, _multi_tp_serve,
+                 _multi_train):
+        part()
+        log(f"[{time.perf_counter() - t0:.0f} s] {part.__name__} done")
 
 
 # --------------------------------------------------------------------------

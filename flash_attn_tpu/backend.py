@@ -1,8 +1,9 @@
 """The one place that decides how attention is computed.
 
 Every attention entry point (``interface``, ``cache.kvcache``, ``parallel``)
-calls :func:`attention` or :func:`decode_attention` here, in the
-(batch, seq, heads, dim) layout. Three implementations sit behind them:
+calls :func:`attention`, :func:`attention_exact_lse` or
+:func:`decode_attention` here, in the (batch, seq, heads, dim) layout.
+Three implementations sit behind :func:`attention`:
 
 - ``"cudnn"``: ``jax.nn.dot_product_attention(implementation="cudnn")``,
   cuDNN's fused flash attention on an NVIDIA GPU (on sm90 the FA3 design:
@@ -15,10 +16,12 @@ calls :func:`attention` or :func:`decode_attention` here, in the
 - ``"jnp"``: :func:`_attention_plain` in this module, a materialized
   softmax for what neither takes: softcap, dropout (counter hash of
   ``kernels.dropout_rng``), learnable sink, ``score_mod``/``mask_mod``,
-  ALiBi, fp8/int8 descales, the MLA extra query, chunked and
-  strictly-causal masks, value head dims unlike the key's, and callers
-  that need an exact float32 lse (the ring merge). It also reads KV
-  caches in place for decode.
+  ALiBi, fp8/int8 descales, the MLA extra query, chunked masks and
+  value head dims unlike the key's. It also reads KV caches in place for
+  decode.
+
+:func:`attention_exact_lse` serves callers whose lse feeds further
+arithmetic (the ring merge), in plain JAX over key blocks.
 
 :func:`choose_impl` is a pure function of (platform, dtype, head dims,
 features). Nothing falls back from one implementation to another at run
@@ -26,6 +29,7 @@ time. Gradients are JAX autodiff of the chosen forward; on the GPU that is
 cuDNN's own backward kernel.
 """
 
+import functools
 from typing import FrozenSet, Optional, Tuple
 
 import jax
@@ -37,7 +41,8 @@ from flash_attn_tpu.utils.fa_logging import log_kernel_launch
 __all__ = [
     "CUDNN", "XLA", "JNP", "TRITON", "PLAIN_ONLY_FEATURES", "choose_impl",
     "choose_decode_impl",
-    "attention", "decode_attention", "combine_splits", "normalize_window",
+    "attention", "attention_exact_lse", "decode_attention",
+    "combine_splits", "normalize_window",
     "gather_pages",
 ]
 
@@ -47,7 +52,6 @@ CUDNN, XLA, JNP, TRITON = "cudnn", "xla", "jnp", "triton"
 PLAIN_ONLY_FEATURES = frozenset({
     "softcap", "dropout", "alibi", "learnable_sink", "score_mod",
     "mask_mod", "descale", "qv", "attention_chunk", "sink_tokens",
-    "strict_causal", "exact_lse",
 })
 
 # cuDNN's limits for bf16/fp16 flash attention on sm90, as the installed
@@ -101,8 +105,8 @@ def choose_impl(platform: str, dtype, head_dim: int, head_dim_v: int,
 def call_features(*, softcap=0.0, alibi_slopes=None, learnable_sink=None,
                   dropout_p=0.0, score_mod=None, mask_mod=None,
                   descale=False, qv=None, attention_chunk=0,
-                  sink_token_length=0, strict_causal=False,
-                  exact_lse=False, deterministic=False) -> FrozenSet[str]:
+                  sink_token_length=0,
+                  deterministic=False) -> FrozenSet[str]:
     """The features of one call that constrain :func:`choose_impl`."""
     f = {"deterministic"} if deterministic else set()
     if softcap > 0.0:
@@ -125,10 +129,6 @@ def call_features(*, softcap=0.0, alibi_slopes=None, learnable_sink=None,
         f.add("attention_chunk")
     if sink_token_length > 0:
         f.add("sink_tokens")
-    if strict_causal:
-        f.add("strict_causal")
-    if exact_lse:
-        f.add("exact_lse")
     return frozenset(f)
 
 
@@ -159,22 +159,20 @@ def attention(
     aux_tensors=(),
     attention_chunk: int = 0,
     sink_token_length: int = 0,
-    strict_causal: bool = False,
     q_lengths=None,               # (b,) int32 valid query rows
     kv_lengths=None,              # (b,) int32 valid key rows
     q_descale=None,               # (b, h_k) f32
     k_descale=None,
     v_descale=None,
     qv=None,                      # (b, sq, h, dv) MLA extra query
-    exact_lse: bool = False,
     deterministic: bool = False,
 ):
     """Attention in (batch, seq, heads, dim) layout; returns
     (out (b, sq, h, dv), lse (b, h, sq) natural log, -inf on empty rows).
 
     Masks are bottom-right aligned, per batch row when lengths are given.
-    The lse of the cuDNN/XLA routes has the input's precision; pass
-    ``exact_lse=True`` where the lse feeds further arithmetic."""
+    The lse of the cuDNN/XLA routes has the input's precision; use
+    :func:`attention_exact_lse` where the lse feeds further arithmetic."""
     window = normalize_window(tuple(window))
     sq, sk = q.shape[1], k.shape[1]
     aligned = sq == sk and (q_lengths is kv_lengths)
@@ -185,8 +183,7 @@ def attention(
         learnable_sink=learnable_sink, dropout_p=dropout_p,
         score_mod=score_mod, mask_mod=mask_mod, descale=descale, qv=qv,
         attention_chunk=attention_chunk,
-        sink_token_length=sink_token_length, strict_causal=strict_causal,
-        exact_lse=exact_lse, deterministic=deterministic)
+        sink_token_length=sink_token_length, deterministic=deterministic)
     impl = choose_impl(jax.default_backend(), q.dtype,
                        q.shape[-1], v.shape[-1], feats)
     log_kernel_launch("attention", impl=impl, q=q.shape, k=k.shape,
@@ -201,8 +198,7 @@ def attention(
             score_mod=score_mod, mask_mod=mask_mod,
             aux_tensors=tuple(aux_tensors or ()),
             attention_chunk=attention_chunk,
-            sink_token_length=sink_token_length,
-            strict_causal=strict_causal, q_lengths=q_lengths,
+            sink_token_length=sink_token_length, q_lengths=q_lengths,
             kv_lengths=kv_lengths, q_descale=q_descale,
             k_descale=k_descale, v_descale=v_descale, qv=qv)
     mask = None
@@ -292,7 +288,7 @@ def _attention_library(q, k, v, *, impl, softmax_scale, causal, window,
 
 
 def _geometry_mask(b, sq, sk, *, causal=False, window=(None, None),
-                   strict_causal=False, sink_token_length=0,
+                   sink_token_length=0,
                    attention_chunk=0, q_lengths=None, kv_lengths=None,
                    kv_start=None):
     """Bottom-right-aligned keep mask (b, 1, sq, sk), with the per-row key
@@ -313,8 +309,6 @@ def _geometry_mask(b, sq, sk, *, causal=False, window=(None, None),
     wl, wr = window
     if causal or wr is not None:
         valid &= colp <= rows + shift + (0 if causal else wr)
-    if strict_causal:
-        valid &= colp <= rows + shift - 1
     if wl is not None:
         in_window = colp >= rows + shift - wl
         if sink_token_length > 0:
@@ -346,7 +340,7 @@ def _attention_plain(q, k, v, *, softmax_scale, causal=False,
                      learnable_sink=None, dropout_p=0.0, dropout_seed=None,
                      dropout_offsets=None, score_mod=None, mask_mod=None,
                      aux_tensors=(), attention_chunk=0, sink_token_length=0,
-                     strict_causal=False, q_lengths=None, kv_lengths=None,
+                     q_lengths=None, kv_lengths=None,
                      kv_start=None, q_descale=None, k_descale=None,
                      v_descale=None, qv=None, kv_layout="bshd"):
     """Materialized softmax attention with every feature of the API.
@@ -405,7 +399,7 @@ def _attention_plain(q, k, v, *, softmax_scale, causal=False,
             s, jnp.arange(b, dtype=jnp.int32), jnp.arange(h, dtype=jnp.int32))
 
     valid, colp, shift = _geometry_mask(
-        b, sq, sk, causal=causal, window=window, strict_causal=strict_causal,
+        b, sq, sk, causal=causal, window=window,
         sink_token_length=sink_token_length, attention_chunk=attention_chunk,
         q_lengths=q_lengths, kv_lengths=kv_lengths, kv_start=kv_start)
     q_len = (jnp.full((b,), sq, jnp.int32) if q_lengths is None
@@ -463,6 +457,146 @@ def _attention_plain(q, k, v, *, softmax_scale, causal=False,
     out = jnp.where(live[:, :, None, None], out, 0.0)
     lse = jnp.where(live[:, None, :], lse, -jnp.inf)
     return out.astype(out_dtype), lse
+
+
+BLOCK_K = 512   # keys per step of attention_exact_lse
+
+
+def _group(x, h_k):
+    """(b, s, h, d) -> (b, h_k, h // h_k, s, d)."""
+    b, s, h, d = x.shape
+    return jnp.moveaxis(x.reshape(b, s, h_k, h // h_k, d), 1, 3)
+
+
+def _key_blocks(x, block_k):
+    """(b, sk, h_k, d) -> (blocks, b, h_k, block_k, d), zero-padded."""
+    b, sk, h_k, d = x.shape
+    nb = -(-sk // block_k)
+    x = jnp.pad(x, ((0, 0), (0, nb * block_k - sk), (0, 0), (0, 0)))
+    return jnp.moveaxis(x.reshape(b, nb, block_k, h_k, d), (1, 2), (0, 3))
+
+
+def _block_keep(j, sq, sk, block_k, causal, strict_causal):
+    """Keep mask (sq, block_k) of key block j, bottom-right aligned."""
+    rows = jnp.arange(sq, dtype=jnp.int32)[:, None]
+    cols = j * block_k + jnp.arange(block_k, dtype=jnp.int32)[None, :]
+    keep = cols < sk
+    if causal or strict_causal:
+        keep &= cols <= rows + (sk - sq) - (1 if strict_causal else 0)
+    return keep
+
+
+def _exact_lse_fwd_impl(q, k, v, scale, causal, strict_causal, block_k):
+    b, sq, h, d = q.shape
+    sk, h_k = k.shape[1], k.shape[2]
+    qg = _group(q, h_k)                                   # (b,k,g,q,d)
+    f32 = jnp.float32
+
+    def step(carry, xs):
+        o, m, l = carry
+        j, kj, vj = xs
+        s = jnp.einsum("bkgqd,bksd->bkgqs", qg, kj,
+                       preferred_element_type=f32) * scale
+        s = jnp.where(_block_keep(j, sq, sk, block_k, causal,
+                                  strict_causal), s, -jnp.inf)
+        m_new = jnp.maximum(m, s.max(-1))
+        m_safe = jnp.where(jnp.isneginf(m_new), 0.0, m_new)
+        p = jnp.exp(s - m_safe[..., None])
+        corr = jnp.exp(m - m_safe)
+        o = o * corr[..., None] + jnp.einsum(
+            "bkgqs,bksd->bkgqd", p.astype(v.dtype), vj,
+            preferred_element_type=f32)
+        return (o, m_new, corr * l + p.sum(-1)), None
+
+    g = h // h_k
+    o0 = jnp.zeros((b, h_k, g, sq, v.shape[-1]), f32)
+    m0 = jnp.full((b, h_k, g, sq), -jnp.inf, f32)
+    kb, vb = _key_blocks(k, block_k), _key_blocks(v, block_k)
+    (o, m, l), _ = jax.lax.scan(
+        step, (o0, m0, jnp.zeros_like(m0)),
+        (jnp.arange(kb.shape[0], dtype=jnp.int32), kb, vb))
+    empty = l == 0.0
+    o = o / jnp.where(empty, 1.0, l)[..., None]
+    lse = jnp.where(empty, -jnp.inf, m + jnp.log(jnp.where(empty, 1.0, l)))
+    out = jnp.moveaxis(o, 3, 1).reshape(b, sq, h, v.shape[-1])
+    return out.astype(q.dtype), lse.reshape(b, h, sq)
+
+
+@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4, 5, 6))
+def _exact_lse(q, k, v, scale, causal, strict_causal, block_k):
+    return _exact_lse_fwd_impl(q, k, v, scale, causal, strict_causal,
+                               block_k)
+
+
+def _exact_lse_fwd(q, k, v, scale, causal, strict_causal, block_k):
+    out, lse = _exact_lse_fwd_impl(q, k, v, scale, causal, strict_causal,
+                                   block_k)
+    return (out, lse), (q, k, v, out, lse)
+
+
+def _exact_lse_bwd(scale, causal, strict_causal, block_k, res, cts):
+    """Each key block's probabilities recomputed from the lse. The lse's
+    own cotangent enters as a shift of the row term: dS = P (dP - D) with
+    D = rowsum(dO * O) - dlse."""
+    q, k, v, out, lse = res
+    do, dlse = cts
+    b, sq, h, d = q.shape
+    sk, h_k = k.shape[1], k.shape[2]
+    g = h // h_k
+    f32 = jnp.float32
+    qg, dog = _group(q, h_k), _group(do.astype(q.dtype), h_k)
+    lse = lse.reshape(b, h_k, g, sq)
+    live = jnp.isfinite(lse)
+    lse_safe = jnp.where(live, lse, 0.0)
+    dlse = jnp.where(live, dlse.reshape(b, h_k, g, sq), 0.0)
+    D = (dog.astype(f32) * _group(out, h_k).astype(f32)).sum(-1) - dlse
+
+    def step(dq, xs):
+        j, kj, vj = xs
+        s = jnp.einsum("bkgqd,bksd->bkgqs", qg, kj,
+                       preferred_element_type=f32) * scale
+        keep = _block_keep(j, sq, sk, block_k, causal, strict_causal)
+        p = jnp.where(keep & live[..., None],
+                      jnp.exp(s - lse_safe[..., None]), 0.0)
+        dv = jnp.einsum("bkgqs,bkgqd->bksd", p.astype(q.dtype), dog,
+                        preferred_element_type=f32)
+        dp = jnp.einsum("bkgqd,bksd->bkgqs", dog, vj.astype(q.dtype),
+                        preferred_element_type=f32)
+        ds = (p * (dp - D[..., None]) * scale).astype(q.dtype)
+        dq = dq + jnp.einsum("bkgqs,bksd->bkgqd", ds, kj,
+                             preferred_element_type=f32)
+        dk = jnp.einsum("bkgqs,bkgqd->bksd", ds, qg,
+                        preferred_element_type=f32)
+        return dq, (dk, dv)
+
+    kb, vb = _key_blocks(k, block_k), _key_blocks(v, block_k)
+    dq, (dk, dv) = jax.lax.scan(
+        step, jnp.zeros(qg.shape, f32),
+        (jnp.arange(kb.shape[0], dtype=jnp.int32), kb, vb))
+    unblock = lambda x: jnp.moveaxis(x, (0, 3), (1, 2)).reshape(
+        b, -1, h_k, x.shape[-1])[:, :sk]
+    dq = jnp.moveaxis(dq, 3, 1).reshape(b, sq, h, d)
+    return (dq.astype(q.dtype), unblock(dk).astype(k.dtype),
+            unblock(dv).astype(v.dtype))
+
+
+_exact_lse.defvjp(_exact_lse_fwd, _exact_lse_bwd)
+
+
+def attention_exact_lse(q, k, v, *, softmax_scale, causal=False,
+                        strict_causal=False):
+    """(out (b, sq, h, dv), lse (b, h, sq) float32) for callers whose lse
+    feeds further arithmetic, such as the ring merge: ``jax.nn`` returns
+    the lse in the inputs' precision. Online softmax over blocks of
+    ``BLOCK_K`` keys in plain JAX, so memory grows with sq * BLOCK_K, not
+    sq * sk. Its VJP recomputes each block from the lse and takes the
+    lse's cotangent too. ``strict_causal`` also masks the diagonal. Masks
+    are bottom-right aligned; q (b, sq, h, d), k/v (b, sk, h_k, d)."""
+    log_kernel_launch("attention", impl="exact_lse", q=q.shape, k=k.shape,
+                      causal=causal or strict_causal, window=(None, None),
+                      dtype=q.dtype, features="exact_lse")
+    return _exact_lse(q, k, v, float(softmax_scale), causal, strict_causal,
+                      min(BLOCK_K, k.shape[1]))
 
 
 def choose_decode_impl(platform: str, *, paged: bool, sq: int,

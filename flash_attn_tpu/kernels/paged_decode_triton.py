@@ -34,25 +34,25 @@ __all__ = ["paged_decode", "num_splits_for"]
 
 MASK_VALUE = -0.7 * float(jnp.finfo(jnp.float32).max)
 BLOCK_H = 16          # rows of the score matmul: Triton's dot needs >= 16
-H100_SMS = 132        # streaming multiprocessors of an H100 SXM
+NUM_WARPS = 4
+NUM_STAGES = 2
 
 
-def num_splits_for(batch: int, kv_heads: int, pages_per_seq: int,
-                   num_sms: int = H100_SMS) -> int:
+def num_splits_for(batch: int, kv_heads: int, pages_per_seq: int) -> int:
     """Context splits so that batch * kv_heads * splits programs give each
-    SM about two: fewer programs leave SMs idle, more only add combine
-    work. At most one split per page."""
+    of the device's SMs about two: fewer programs leave SMs idle, more
+    only add combine work. At most one split per page."""
+    num_sms = jax.devices()[0].core_count
     programs = batch * kv_heads
     return max(1, min(pages_per_seq, -(-2 * num_sms // programs)))
 
 
 def _kernel(q_ref, k_ref, v_ref, table_ref, len_ref, kd_ref, vd_ref,
-            o_ref, m_ref, l_ref, *, scale, pages_per_block):
+            o_ref, m_ref, l_ref, *, scale):
     split = pl.program_id(2)
     block_h, d = q_ref.shape
     page_size = k_ref.shape[-2]
     pages_per_split = table_ref.shape[0]
-    block_k = pages_per_block * page_size
     length = len_ref[0]
     q = q_ref[...]
     k_scale = scale * kd_ref[0]
@@ -62,11 +62,11 @@ def _kernel(q_ref, k_ref, v_ref, table_ref, len_ref, kd_ref, vd_ref,
 
     def body(i, carry):
         o, m, l = carry
-        pages = table_ref[pl.ds(i * pages_per_block, pages_per_block)]
-        k = k_ref[pages].reshape(block_k, d).astype(q.dtype)
-        v = v_ref[pages].reshape(block_k, d).astype(q.dtype)
+        page = table_ref[pl.ds(i, 1)]
+        k = k_ref[page].reshape(page_size, d).astype(q.dtype)
+        v = v_ref[page].reshape(page_size, d).astype(q.dtype)
         s = pl.dot(q, k.T).astype(jnp.float32) * k_scale
-        tok = (start + i * pages_per_block) * page_size + jnp.arange(block_k)
+        tok = (start + i) * page_size + jnp.arange(page_size)
         s = jnp.where((tok < length)[None, :], s, MASK_VALUE)
         m_new = jnp.maximum(m, s.max(axis=-1))
         corr = jnp.exp(m - m_new)
@@ -76,7 +76,7 @@ def _kernel(q_ref, k_ref, v_ref, table_ref, len_ref, kd_ref, vd_ref,
             jnp.float32)
         return o, m_new, l
 
-    n = pl.cdiv(jnp.maximum(end - start, 0), pages_per_block)
+    n = jnp.maximum(end - start, 0)
     o0 = jnp.zeros((block_h, d), jnp.float32)
     m0 = jnp.full((block_h,), MASK_VALUE, jnp.float32)
     l0 = jnp.zeros((block_h,), jnp.float32)
@@ -87,11 +87,9 @@ def _kernel(q_ref, k_ref, v_ref, table_ref, len_ref, kd_ref, vd_ref,
 
 
 @functools.partial(jax.jit, static_argnames=(
-    "softmax_scale", "num_splits", "pages_per_block", "num_warps",
-    "num_stages", "interpret"))
+    "softmax_scale", "num_splits", "interpret"))
 def paged_decode(q, k_pages, v_pages, block_table, lengths, k_descale=None,
                  v_descale=None, *, softmax_scale, num_splits=None,
-                 pages_per_block=1, num_warps=4, num_stages=2,
                  interpret=False):
     """One query token per row against a paged cache.
 
@@ -109,7 +107,6 @@ def paged_decode(q, k_pages, v_pages, block_table, lengths, k_descale=None,
     if num_splits is None:
         num_splits = num_splits_for(b, h_k, max_pages)
     per_split = -(-max_pages // num_splits)
-    per_split = -(-per_split // pages_per_block) * pages_per_block
     table = jnp.pad(block_table.astype(jnp.int32),
                     ((0, 0), (0, per_split * num_splits - max_pages)))
     table = table.reshape(b, num_splits, per_split)
@@ -120,8 +117,7 @@ def paged_decode(q, k_pages, v_pages, block_table, lengths, k_descale=None,
                  ((0, 0), (0, 0), (0, BLOCK_H - g), (0, 0)))
 
     o, m, l = pl.pallas_call(
-        functools.partial(_kernel, scale=softmax_scale,
-                          pages_per_block=pages_per_block),
+        functools.partial(_kernel, scale=softmax_scale),
         grid=(b, h_k, num_splits),
         in_specs=[
             pl.BlockSpec((None, None, BLOCK_H, d),
@@ -149,8 +145,8 @@ def paged_decode(q, k_pages, v_pages, block_table, lengths, k_descale=None,
             jax.ShapeDtypeStruct((num_splits, b, h_k, BLOCK_H), jnp.float32),
             jax.ShapeDtypeStruct((num_splits, b, h_k, BLOCK_H), jnp.float32),
         ],
-        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
-                                             num_stages=num_stages),
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
         backend="triton",
         interpret=interpret,
         name="paged_decode",

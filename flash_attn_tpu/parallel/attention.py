@@ -11,9 +11,10 @@ using the same (out, lse) merge algebra as backend.combine_splits.
    head-sharded activations).
  - ``ring_attention``: KV shards rotate around the seq axis with
    jax.lax.ppermute; each step merges a partial (out, lse) pair online.
-   The partials come from backend.attention with an exact float32 lse; the
-   ring is differentiable by autodiff (each step is rematerialized in the
-   backward, and ppermute transposes to the reverse rotation).
+   The partials come from backend.attention_exact_lse (online softmax over
+   key blocks, exact float32 lse, memory linear in the shard's length);
+   the ring is differentiable by autodiff (each step is rematerialized in
+   the backward, and ppermute transposes to the reverse rotation).
 
 Causal load balance (round 2): tokens are assigned to devices in a
 *striped* (round-robin) layout — global token i lives on device i % P at
@@ -66,15 +67,24 @@ def unstripe_sequence(x, num_devices: int, axis: int = 2):
     return jnp.swapaxes(x.reshape(shp), axis, axis + 1).reshape(x.shape)
 
 
-def _local_attention(q, k, v, scale, causal=False, strict_causal=False,
-                     window_size=(None, None), softcap=0.0, exact_lse=True):
-    """(b, h, s, d) attention on one device's shard -> (out, lse)."""
-    tr = lambda x: jnp.swapaxes(x, 1, 2)
-    out, lse = backend.attention(
-        tr(q), tr(k), tr(v), softmax_scale=scale, causal=causal,
-        strict_causal=strict_causal, window=window_size, softcap=softcap,
-        exact_lse=exact_lse)
-    return tr(out), lse
+_tr = lambda x: jnp.swapaxes(x, 1, 2)      # (b, h, s, d) <-> (b, s, h, d)
+
+
+def _local_attention(q, k, v, scale, causal=False, window_size=(None, None),
+                     softcap=0.0):
+    """(b, h, s, d) attention on one device's shard."""
+    out, _ = backend.attention(
+        _tr(q), _tr(k), _tr(v), softmax_scale=scale, causal=causal,
+        window=window_size, softcap=softcap)
+    return _tr(out)
+
+
+def _local_partial(q, k, v, scale, causal=False, strict_causal=False):
+    """(b, h, s, d) shard partial -> (out float32, exact lse)."""
+    out, lse = backend.attention_exact_lse(
+        _tr(q), _tr(k), _tr(v), softmax_scale=scale, causal=causal,
+        strict_causal=strict_causal)
+    return _tr(out).astype(jnp.float32), lse
 
 
 def head_parallel_attention(
@@ -92,8 +102,7 @@ def head_parallel_attention(
     def local(q, k, v):
         scale = softmax_scale or 1.0 / math.sqrt(q.shape[-1])
         return _local_attention(q, k, v, scale, causal=causal,
-                                window_size=window_size, softcap=softcap,
-                                exact_lse=False)[0]
+                                window_size=window_size, softcap=softcap)
 
     return jax.jit(jax.shard_map(
         local, mesh=mesh, in_specs=(spec, spec, spec), out_specs=spec,
@@ -124,14 +133,12 @@ def _striped_partial(q, k_cur, v_cur, src_rank, my, scale, causal):
     both variants once and runs exactly one.
     """
     if not causal:
-        o_p, lse_p = _local_attention(q, k_cur, v_cur, scale)
-        return o_p.astype(jnp.float32), lse_p
-    o_p, lse_p = jax.lax.cond(
+        return _local_partial(q, k_cur, v_cur, scale)
+    return jax.lax.cond(
         src_rank <= my,
-        lambda q, k, v: _local_attention(q, k, v, scale, causal=True),
-        lambda q, k, v: _local_attention(q, k, v, scale, strict_causal=True),
+        lambda q, k, v: _local_partial(q, k, v, scale, causal=True),
+        lambda q, k, v: _local_partial(q, k, v, scale, strict_causal=True),
         q, k_cur, v_cur)
-    return o_p.astype(jnp.float32), lse_p
 
 
 def _ring_local(causal, softmax_scale, axis_name):
@@ -223,8 +230,7 @@ def ring_attention_apply(
     if axis_name not in am.shape or am.shape[axis_name] == 1:
         # no seq axis on the mesh — plain local attention
         scale = softmax_scale or 1.0 / math.sqrt(q.shape[-1])
-        return _local_attention(q, k, v, scale, causal=causal,
-                                exact_lse=False)[0]
+        return _local_attention(q, k, v, scale, causal=causal)
     n_seq = am.shape[axis_name]
     spec = P(DATA_AXIS, MODEL_AXIS, SEQ_AXIS, None)
     ring = jax.shard_map(

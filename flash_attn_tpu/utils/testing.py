@@ -365,27 +365,29 @@ def _refs(fn, *args):
     return ref, ref_lp
 
 
+def _loss_grad(f):
+    """(q, k, v, g) -> (dq, dk, dv) of sum(f(q, k, v) * g), jitted. The
+    cotangent is an argument: closed over, it would be compiled into the
+    program as a constant."""
+    return jax.jit(jax.grad(
+        lambda q, k, v, g: (f(q, k, v).astype(jnp.float32) * g).sum(),
+        argnums=(0, 1, 2)))
+
+
 def _ref_grads(f_ref, args, g):
     """Gradients of sum(ref(args) * g): fp32 (full-precision matmuls) and
     in the inputs' dtype."""
-    def loss(*a, upcast):
-        return (f_ref(*a, upcast=upcast).astype(jnp.float32) * g).sum()
-
     with jax.default_matmul_precision("highest"):
-        ref = jax.jit(jax.grad(lambda *a: loss(*a, upcast=True),
-                               argnums=(0, 1, 2)))(
-            *[a.astype(jnp.float32) for a in args])
-    lp = jax.jit(jax.grad(lambda *a: loss(*a, upcast=False),
-                          argnums=(0, 1, 2)))(*args)
+        ref = _loss_grad(lambda *a: f_ref(*a, upcast=True))(
+            *[a.astype(jnp.float32) for a in args], g)
+    lp = _loss_grad(lambda *a: f_ref(*a, upcast=False))(*args, g)
     return ref, lp
 
 
 def _grad_checks(name, f_impl, f_ref, args, g, mult=3.0):
     """dq/dk/dv of sum(out * g) through f_impl vs through f_ref (the
     repo's gradient contract uses 3x the low-precision error)."""
-    got = jax.jit(jax.grad(
-        lambda *a: (f_impl(*a).astype(jnp.float32) * g).sum(),
-        argnums=(0, 1, 2)))(*args)
+    got = _loss_grad(f_impl)(*args, g)
     ref, lp = _ref_grads(f_ref, args, g)
     return [(f"{name} {n}",) + _bound(a, r, l, mult)
             for n, a, r, l in zip(("dq", "dk", "dv"), got, ref, lp)]
@@ -429,10 +431,62 @@ def _dense_case(name, b, s, h, h_k, d, *, grad, ref_heads=None, **kw):
     return checks
 
 
-def _varlen_case(seqs, lo, hi, h, d, grad=True, check_seqs=2):
+def _masked_refs(q, k, v, q_valid, k_valid, g=None):
+    """Causal fp32 and low-precision references over padded rows, one row
+    at a time (lax.map: one compile, one row's scores in memory): q (n, sq,
+    h, d), k/v (n, sk, h_k, d), validity masks (n, sq) and (n, sk), causal
+    aligned to each row's last valid query and key. With a cotangent g
+    (n, sq, h, d), each reference is (out, dq, dk, dv), else (out,)."""
+    def row(xs, upcast):
+        q, k, v, qm, km = xs[:5]
+        f = lambda q, k, v: attention_ref(
+            q[None], k[None], v[None], query_padding_mask=qm[None],
+            key_padding_mask=km[None], causal=True, upcast=upcast,
+            reorder_ops=not upcast)[0][0]
+        if g is None:
+            return (f(q, k, v),)
+        out, vjp = jax.vjp(f, q, k, v)
+        return (out,) + vjp(xs[5].astype(out.dtype))
+
+    xs = (q, k, v, q_valid, k_valid) + (() if g is None else (g,))
+    run = lambda xs, upcast: jax.jit(lambda xs: jax.lax.map(
+        lambda a: row(a, upcast), xs))(xs)
+    with jax.default_matmul_precision("highest"):
+        ref = run(tuple(x.astype(jnp.float32) if x.dtype != jnp.bool_
+                        else x for x in xs), True)
+    return ref, run(xs, False)
+
+
+def _worst_row(name, got, ref, lp, valid, mult, labels):
+    """The contract row by row: err_i = max|got - ref| and bound_i =
+    mult * max|lp - ref| + 1e-5 over row i's valid positions. Returns the
+    check of the row nearest its bound."""
+    keep = valid[:, :, None, None]
+    dev = lambda a: np.asarray(jnp.max(jnp.where(keep, jnp.abs(
+        a.astype(jnp.float32) - ref.astype(jnp.float32)), 0.0),
+        axis=(1, 2, 3)))
+    err, bound = dev(got), mult * dev(lp) + 1e-5
+    i = int(np.argmax(err / bound))
+    return (f"{name} (all {len(err)} seqs; nearest its bound: {labels[i]})",
+            float(err[i]), float(bound[i]))
+
+
+def _pad_rows(x, cu, length):
+    """Packed (total, ...) -> (n, length, ...) by cu_seqlens, and the
+    (n, length) validity mask; padding rows are zero."""
+    cu = np.asarray(cu)
+    pos = np.arange(length)[None, :]
+    valid = pos < (cu[1:] - cu[:-1])[:, None]
+    idx = np.where(valid, cu[:-1, None] + pos, 0)
+    rows = jnp.asarray(x)[jnp.asarray(idx)]
+    keep = jnp.asarray(valid).reshape(valid.shape + (1,) * (x.ndim - 1))
+    return jnp.where(keep, rows, 0).astype(x.dtype), jnp.asarray(valid)
+
+
+def _varlen_case(seqs, lo, hi, h, d, grad=True):
     """flash_attn_varlen_func (+ gradient) on packed sequences of lengths
-    uniform in [lo, hi], causal; the shortest and longest sequences are
-    checked against per-sequence references."""
+    uniform in [lo, hi], causal; every sequence is checked against its own
+    reference."""
     from flash_attn_tpu import flash_attn_varlen_func
 
     rng = np.random.default_rng(0)
@@ -445,28 +499,17 @@ def _varlen_case(seqs, lo, hi, h, d, grad=True, check_seqs=2):
     mx = max(lens)
     f = lambda q, k, v: flash_attn_varlen_func(q, k, v, cu, cu, mx, mx,
                                                causal=True)
-    out = jax.jit(f)(q, k, v)
-    grads = None
+    got = (jax.jit(f)(q, k, v),)
     if grad:
-        grads = jax.jit(jax.grad(
-            lambda *a: (f(*a).astype(jnp.float32) * g).sum(),
-            argnums=(0, 1, 2)))(q, k, v)
-    f_ref = lambda q, k, v, upcast: attention_ref(
-        q, k, v, causal=True, upcast=upcast, reorder_ops=not upcast)[0]
-    checks = []
-    picks = sorted({int(np.argmin(lens)), int(np.argmax(lens))})[:check_seqs]
-    for i in picks:
-        sl = slice(int(cu[i]), int(cu[i + 1]))
-        qi, ki, vi = (x[sl][None] for x in (q, k, v))
-        ref, ref_lp = _refs(f_ref, qi, ki, vi)
-        checks.append((f"varlen seq{i} len{lens[i]} out",)
-                      + _bound(out[sl][None], ref, ref_lp, 2.0))
-        if grad:
-            ref_g, lp_g = _ref_grads(f_ref, (qi, ki, vi), g[sl][None])
-            for n, got, r, l in zip(("dq", "dk", "dv"), grads, ref_g, lp_g):
-                checks.append((f"varlen seq{i} {n}",)
-                              + _bound(got[sl][None], r, l, 3.0))
-    return checks
+        got += _loss_grad(f)(q, k, v, g)
+    pad = lambda x: _pad_rows(x, cu, mx)[0]
+    valid = _pad_rows(q, cu, mx)[1]
+    ref, lp = _masked_refs(pad(q), pad(k), pad(v), valid, valid,
+                           pad(g) if grad else None)
+    labels = [f"seq{i} len{n}" for i, n in enumerate(lens)]
+    return [_worst_row(f"varlen {n}", pad(a), r, l, valid,
+                       2.0 if n == "out" else 3.0, labels)
+            for n, a, r, l in zip(("out", "dq", "dk", "dv"), got, ref, lp)]
 
 
 def _paged_pool(key, lens_k, h_k, d, page, dtype=jnp.bfloat16):
@@ -482,16 +525,10 @@ def _paged_pool(key, lens_k, h_k, d, page, dtype=jnp.bfloat16):
     return kp, vp, jnp.asarray(table)
 
 
-def _lay_out_pages(pool, row, length):
-    pages = pool[row]                                   # (P, h_k, ps, d)
-    lin = jnp.swapaxes(pages, 1, 2).reshape(-1, pool.shape[1],
-                                            pool.shape[3])
-    return lin[:length][None]
-
-
-def _paged_prefill_case(seqs, h, h_k, d, page, check_seqs=2):
+def _paged_prefill_case(seqs, h, h_k, d, page):
     """Chunked prefill of packed query chunks against a paged cache
-    (flash_attn_varlen_func(block_table=...)), bottom-right causal."""
+    (flash_attn_varlen_func(block_table=...)), bottom-right causal; every
+    sequence is checked against its own reference."""
     from flash_attn_tpu import flash_attn_varlen_func
 
     rng = np.random.default_rng(0)
@@ -507,18 +544,17 @@ def _paged_prefill_case(seqs, h, h_k, d, page, check_seqs=2):
     out = jax.jit(lambda q, kp, vp: flash_attn_varlen_func(
         q, kp, vp, cu, None, max(lens_q), max(lens_k), seqused_k=seqk,
         block_table=table, causal=True))(q, kp, vp)
-    f_ref = lambda q, k, v, upcast: attention_ref(
-        q, k, v, causal=True, upcast=upcast, reorder_ops=not upcast)[0]
-    checks = []
-    for i in sorted({int(np.argmin(lens_q)), int(np.argmax(lens_k))})[
-            :check_seqs]:
-        sl = slice(int(cu[i]), int(cu[i + 1]))
-        ki = _lay_out_pages(kp, table[i], lens_k[i])
-        vi = _lay_out_pages(vp, table[i], lens_k[i])
-        ref, ref_lp = _refs(f_ref, q[sl][None], ki, vi)
-        checks.append((f"paged prefill seq{i} q{lens_q[i]} k{lens_k[i]}",)
-                      + _bound(out[sl][None], ref, ref_lp, 2.0))
-    return checks
+    q_pad, q_valid = _pad_rows(q, cu, max(lens_q))
+    s_max = table.shape[1] * page
+    lay_out = lambda pool: jnp.swapaxes(pool[table], 2, 3).reshape(
+        seqs, s_max, h_k, d)
+    k_valid = jnp.arange(s_max)[None, :] < seqk[:, None]
+    ref, lp = _masked_refs(q_pad, lay_out(kp), lay_out(vp), q_valid,
+                           k_valid)
+    labels = [f"seq{i} q{a} k{b}" for i, (a, b) in
+              enumerate(zip(lens_q, lens_k))]
+    return [_worst_row("paged prefill out", _pad_rows(out, cu, max(lens_q))[0],
+                       ref[0], lp[0], q_valid, 2.0, labels)]
 
 
 def _decode_case(b, ctx, h, h_k, d, page, cache_dtype):

@@ -57,8 +57,7 @@ def test_call_features_names_every_plain_feature():
         softcap=5.0, alibi_slopes=jnp.ones((1, 1)),
         learnable_sink=jnp.ones((1,)), dropout_p=0.1,
         score_mod=lambda *a: a[0], mask_mod=lambda *a: True, descale=True,
-        qv=jnp.ones(1), attention_chunk=8, sink_token_length=4,
-        strict_causal=True, exact_lse=True)
+        qv=jnp.ones(1), attention_chunk=8, sink_token_length=4)
     assert feats == backend.PLAIN_ONLY_FEATURES
     assert backend.call_features() == frozenset()
 
@@ -277,3 +276,77 @@ def test_odd_lengths_padded_even(sq, sk, causal):
                                             causal=causal)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-5)
     np.testing.assert_array_equal(np.isneginf(lse), np.isneginf(ref_lse))
+
+
+def _dense_with_lse(q, k, v, scale, mask):
+    """fp32 materialized (out, lse) under a keep mask (sq, sk)."""
+    g = q.shape[2] // k.shape[2]
+    k, v = jnp.repeat(k, g, axis=2), jnp.repeat(v, g, axis=2)
+    s = jnp.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    s = jnp.where(mask, s, -jnp.inf)
+    lse = jax.nn.logsumexp(s, axis=-1)
+    live = jnp.isfinite(lse)
+    p = jnp.where(mask & live[..., None],
+                  jnp.exp(s - jnp.where(live, lse, 0.0)[..., None]), 0.0)
+    return jnp.einsum("bhqk,bkhd->bqhd", p, v), lse
+
+
+def _keep(sq, sk, mode):
+    rows = np.arange(sq)[:, None] + (sk - sq)
+    cols = np.arange(sk)[None, :]
+    return {"none": np.ones((sq, sk), bool), "causal": cols <= rows,
+            "strict": cols < rows}[mode]
+
+
+@pytest.mark.parametrize("mode", ["none", "causal", "strict"])
+@pytest.mark.parametrize("sq,sk,h,h_k", [(40, 40, 4, 4), (24, 56, 4, 2),
+                                         (33, 33, 2, 1)])
+def test_exact_lse_forward(sq, sk, h, h_k, mode, monkeypatch):
+    """Online softmax over key blocks (16 keys, the last block padded):
+    output and float32 lse equal the materialized softmax, empty rows
+    (strict-causal row 0) zero with lse -inf."""
+    monkeypatch.setattr(backend, "BLOCK_K", 16)
+    ks = jax.random.split(jax.random.PRNGKey(sq + sk), 3)
+    q = jax.random.normal(ks[0], (2, sq, h, 16))
+    k = jax.random.normal(ks[1], (2, sk, h_k, 16))
+    v = jax.random.normal(ks[2], (2, sk, h_k, 16))
+    out, lse = backend.attention_exact_lse(
+        q, k, v, softmax_scale=0.25, causal=mode == "causal",
+        strict_causal=mode == "strict")
+    ref, ref_lse = _dense_with_lse(q, k, v, 0.25, _keep(sq, sk, mode))
+    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-5)
+    np.testing.assert_array_equal(np.isneginf(lse), np.isneginf(ref_lse))
+    live = np.isfinite(np.asarray(ref_lse))
+    np.testing.assert_allclose(np.asarray(lse)[live],
+                               np.asarray(ref_lse)[live], atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["none", "causal", "strict"])
+@pytest.mark.parametrize("h,h_k", [(4, 4), (4, 2)])
+def test_exact_lse_gradients(h, h_k, mode, monkeypatch):
+    """The custom VJP, with cotangents on both the output and the lse (the
+    ring merge differentiates through the lse), equals autodiff of the
+    materialized softmax."""
+    monkeypatch.setattr(backend, "BLOCK_K", 16)
+    sq = sk = 48
+    ks = jax.random.split(jax.random.PRNGKey(h * 3 + h_k), 5)
+    q = jax.random.normal(ks[0], (2, sq, h, 16))
+    k = jax.random.normal(ks[1], (2, sk, h_k, 16))
+    v = jax.random.normal(ks[2], (2, sk, h_k, 16))
+    g_out = jax.random.normal(ks[3], (2, sq, h, 16))
+    g_lse = jax.random.normal(ks[4], (2, h, sq))
+    keep = _keep(sq, sk, mode)
+
+    def loss(f):
+        def inner(q, k, v):
+            out, lse = f(q, k, v)
+            return ((out * g_out).sum()
+                    + jnp.where(jnp.isfinite(lse), lse * g_lse, 0.0).sum())
+        return jax.grad(inner, argnums=(0, 1, 2))(q, k, v)
+
+    got = loss(lambda q, k, v: backend.attention_exact_lse(
+        q, k, v, softmax_scale=0.25, causal=mode == "causal",
+        strict_causal=mode == "strict"))
+    want = loss(lambda q, k, v: _dense_with_lse(q, k, v, 0.25, keep))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-4)
